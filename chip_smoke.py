@@ -8,22 +8,44 @@ Phases, each printing one JSON line; any failure exits non-zero:
                exits 2 when CUDA is unavailable.
 2. build    -- builds every kernel from ``triplaneturbo_torch/csrc`` with nvcc and
                prints each one's ``-Xptxas -v`` lines.
-3. kernels  -- holds each kernel against its plain PyTorch version at every shape the
-               main path gives it (flash attention in bf16 and f32, the field grid in
-               f32 at R=160), and times kernel, plain version and the library call.
-               Tolerances: flash attention f32 1e-4 absolute, bf16 1e-2 of the
-               largest reference value (the output's own bf16 rounding is at most
-               2^-9 of it); field grid 1e-4 absolute.
+3. kernels  -- holds each kernel against its plain PyTorch version at every shape its
+               main path gives it, and times kernel, plain version and the library
+               call: the flash forward at the serving shapes (one prompt) and the
+               field grid at R=160; the flash forward with stats, the dq and the
+               dk/dv kernels at the training shapes (two prompts), in bf16 at all six
+               sites and in f32 at the joint and VAE sites, plus ragged lengths
+               (700/700, 300/1200); the field-grid slab backward against autograd of
+               the plain field at R=160 (v1) and R=40 (v2).
+               Tolerances: f32 1e-4 absolute (sums run in another order than the
+               plain version's); bf16 1e-2 of the largest reference value at the
+               site, for each output (a bf16 result's own rounding is at most 2^-9
+               of it, and the backward also takes delta from the bf16-rounded
+               forward output); field grid 1e-4 absolute, its backward
+               1e-4 of the largest reference gradient of each input.
 4. reference -- a small model (head dim 64, so every attention and the field grid
                take the kernels) on the card against the same weights on the CPU
                (plain versions), in f32, one prompt: latents, space cache and SDF.
-5. pipeline -- prompt -> textured mesh at full width (SD-2.1 student UNet, OpenCLIP-H
+5. train_reference -- the same small model's training slice: the generator backward
+               (program B-G) and the guarded Adan update on the card (kernels), with
+               and without gradient checkpointing, against the CPU (plain versions)
+               from the same weights, latent, noise, timestep, text states and
+               space-cache cotangent.
+6. pipeline -- prompt -> textured mesh at full width (SD-2.1 student UNet, OpenCLIP-H
                text tower, retrofitted VAE, R=160 marching cubes) in bf16 on random
                weights from a seed: one warm-up prompt and three timed prompts through
                ``__call__`` with every launch count reset just before and read just
                after, an exported OBJ, then one more ``__call__`` prompt under
                ``torch.profiler``: device-busy ms of each stage (the pipeline's
                ``record_function`` ranges), the idle share and the heaviest kernels.
+7. training -- the student's training backward at full width, two prompts, bf16,
+               R=160: steps of four parts, each part the no-grad generator forward,
+               the mesh branch (field grid -> grad shrink -> empty-field fallback ->
+               marching cubes) differentiated from a seeded vertex cotangent back to
+               the space cache and the field MLPs, and program B-G; then the update.
+               The seeded cotangents stand in for the rasterizer, the volume renderer
+               and the teachers, which are not ported yet, and seeded text states for
+               the prompt processor. Launch counts of all five kernels are asserted
+               for every part; one more part runs under ``torch.profiler``.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Float32 matmuls and cuDNN convolutions run
@@ -58,11 +80,21 @@ ATTN_SHAPES = [
 ]
 K1_LAUNCHES_PER_PROMPT = sum(s[-1] for s in ATTN_SHAPES)  # 101
 K2_LAUNCHES_PER_PROMPT = 1
+# Training attention sites at two prompts: (site, BH, L, Lk, D, launches per UNet + VAE pass).
+TRAIN_PROMPTS = 2
+TRAIN_ATTN_SHAPES = [(site, BH * TRAIN_PROMPTS, L, Lk, D, n // 4 if D == 64 else 1)
+                     for site, BH, L, Lk, D, n in ATTN_SHAPES]
+RAGGED_SHAPES = [("ragged 700/700", 2, 700, 700, 64, 0), ("ragged 300/1200", 2, 300, 1200, 64, 0)]
+FLASH_PER_PASS = sum(s[-1] for s in TRAIN_ATTN_SHAPES)  # 26: one UNet pass and one VAE decode
 # absolute, except flash attention in bf16: a fraction of max |reference|
 TOL = {("flash_attn_fwd", "float32"): 1e-4, ("flash_attn_fwd", "bfloat16"): 1e-2,
-       ("field_grid", "float32"): 1e-4}
+       ("flash_attn_fwd_stats", "float32"): 1e-4, ("flash_attn_fwd_stats", "bfloat16"): 1e-2,
+       ("flash_attn_bwd", "float32"): 1e-4, ("flash_attn_bwd", "bfloat16"): 1e-2,
+       ("field_grid", "float32"): 1e-4, ("field_grid_bwd", "float32"): 1e-4}
 TIMED_PROMPTS = 3
 STAGES = ("text_encoder", "denoise", "vae_decode", "field_grid", "marching_cubes", "colorize")
+TRAIN_STAGES = ("generator_forward", "mesh_branch", "generator_backward")
+TRAIN_STEPS = 3  # one warm-up step and two timed ones, four parts each
 
 
 def emit(obj) -> None:
@@ -203,6 +235,141 @@ def field_grid_case(R, C, concat, gen):
     return row
 
 
+def _flash_bytes(BH, L, Lk, D, esize):
+    """Bytes of q-like and k-like tensors and of one f32 row vector."""
+    return BH * L * D * esize, BH * Lk * D * esize, BH * L * 4
+
+
+def training_attention_case(site, BH, L, Lk, D, dtype_name, gen):
+    """The forward with stats and both backward kernels at one shape: each against
+    its plain version on the card, timed beside it and beside SDPA's forward and
+    autograd backward (yardsticks; nothing on the port's path calls them)."""
+    import torch
+    import torch.nn.functional as F
+    from triplaneturbo_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dtype_name)
+    q, k, v, g = (torch.randn(BH, n, D, device="cuda", generator=gen).to(dtype)
+                  for n in (L, Lk, Lk, L))
+    out, lse = fa._launch(q, k, v, return_stats=True)
+    delta = fa.flash_delta(out, g)
+    dq = fa._launch_dq(q, k, v, g, lse, delta)
+    dk, dv = fa._launch_dkdv(q, k, v, g, lse, delta)
+    torch.cuda.synchronize()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o_ref, lse_ref = fa.flash_attention_reference(qf, kf, vf, return_stats=True)
+    refs = fa.flash_attention_bwd_reference(qf, kf, vf, o_ref, lse_ref, g.float())
+
+    def held(kernel, what, got, ref, absolute=False):
+        err = (got.float() - ref).abs().max().item()
+        ref_max = ref.abs().max().item()
+        rel = dtype_name == "bfloat16" and not absolute
+        tol = TOL[(kernel, "float32" if absolute else dtype_name)] * (ref_max if rel else 1.0)
+        check(math.isfinite(err), f"{kernel} {site} {dtype_name}: non-finite {what}")
+        check(err <= tol, f"{kernel} {site} {dtype_name}: {what} max abs err {err} > {tol}")
+        return err, tol, ref_max
+
+    errs = {"o": held("flash_attn_fwd_stats", "o", out, o_ref),
+            # lse is f32 whatever the input type
+            "lse": held("flash_attn_fwd_stats", "lse", lse, lse_ref, absolute=True),
+            "dq": held("flash_attn_bwd", "dq", dq, refs[0]),
+            "dk": held("flash_attn_bwd", "dk", dk, refs[1]),
+            "dv": held("flash_attn_bwd", "dv", dv, refs[2])}
+    del o_ref, lse_ref, refs, qf, kf, vf
+
+    iters = 5 if L * Lk >= 1 << 20 else 30
+    ms = {"flash_attn_fwd_stats": cuda_ms(lambda: fa._launch(q, k, v, return_stats=True), iters),
+          "flash_attn_bwd_dq": cuda_ms(lambda: fa._launch_dq(q, k, v, g, lse, delta), iters),
+          "flash_attn_bwd_dkdv": cuda_ms(lambda: fa._launch_dkdv(q, k, v, g, lse, delta), iters)}
+    plain_fwd_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, return_stats=True), 3,
+                           warmup=1)
+    # the plain backward computes dq, dk and dv together
+    plain_bwd_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, g), 3,
+                           warmup=1)
+    q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
+    sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), iters)
+    o4 = F.scaled_dot_product_attention(q4, k4, v4)
+    # SDPA's backward, too, computes all three gradients in one call
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g[None],
+                                                      retain_graph=True), iters)
+    del o4
+
+    qb, kb, row = _flash_bytes(BH, L, Lk, D, q.element_size())
+    work = BH * L * Lk * D
+    spec = {
+        "flash_attn_fwd_stats": (4.0 * work, 2 * qb + 2 * kb + row, plain_fwd_ms, sdpa_fwd_ms,
+                                 max(errs["o"][0], errs["lse"][0]), errs["o"][1]),
+        # three products: S, dP, dS K; reads q, dO, k, v, lse, delta, writes dq
+        "flash_attn_bwd_dq": (6.0 * work, 3 * qb + 2 * kb + 2 * row, plain_bwd_ms, sdpa_bwd_ms,
+                              errs["dq"][0], errs["dq"][1]),
+        # four products: S, dP, P^T dO, dS^T Q; writes dk and dv
+        "flash_attn_bwd_dkdv": (8.0 * work, 2 * qb + 4 * kb + 2 * row, plain_bwd_ms, sdpa_bwd_ms,
+                                max(errs["dk"][0], errs["dv"][0]),
+                                max(errs["dk"][1], errs["dv"][1])),
+    }
+    rows = []
+    for kernel, (flops, nbytes, plain_ms, lib_ms, err, tol) in spec.items():
+        bound_ms, bound_by = bound(flops, nbytes, dtype_name)
+        row_ = {"phase": "kernel_case", "kernel": kernel, "site": site, "dtype": dtype_name,
+                "BH": BH, "L": L, "Lk": Lk, "D": D, "max_abs_err": err, "tol": tol,
+                "ms": ms[kernel], "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        if kernel != "flash_attn_fwd_stats":
+            row_["plain_and_library_compute"] = "dq, dk and dv in one call"
+            row_["errors"] = {n: errs[n][0] for n in ("dq", "dk", "dv")}
+            row_["ref_max_abs"] = {n: errs[n][2] for n in ("dq", "dk", "dv")}
+        emit(row_)
+        rows.append(row_)
+    return rows
+
+
+def field_grid_backward_case(R, C, concat, gen):
+    """The slab backward of the field grid (plain PyTorch, as the JAX package's is
+    XLA) behind the kernel's autograd function, against autograd of the plain field."""
+    import torch
+    from triplaneturbo_torch.ops import field_grid as fg
+
+    cin = 3 * C if concat else C
+
+    def rnd(*shape, s):
+        return (torch.randn(*shape, device="cuda", generator=gen) * s).requires_grad_()
+
+    ins = [rnd(R, R, C, s=0.3) for _ in range(3)]
+    ins += [rnd(cin, 64, s=0.1), rnd(64, 64, s=0.1), rnd(64, 1, s=0.1),
+            rnd(cin, 64, s=0.1), rnd(64, 64, s=0.1), rnd(64, 3, s=0.1)]
+    g_sdf = torch.randn(R, R, R, device="cuda", generator=gen)
+    g_def = torch.randn(3, R, R, R, device="cuda", generator=gen)
+    before = fg.LAUNCHES
+    outs = fg.fused_field_grid(*ins, 1.0, 0.5, concat)
+    check(fg.LAUNCHES == before + 1, "field_grid backward case: the forward launched no kernel")
+    got = torch.autograd.grad(outs, ins, (g_sdf, g_def), retain_graph=True)
+    ref = torch.autograd.grad(fg.field_grid_reference(*ins, 1.0, 0.5, concat), ins,
+                              (g_sdf, g_def))
+    torch.cuda.synchronize()
+    rel = 0.0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        check(bool(torch.isfinite(a).all()), f"field_grid backward: non-finite gradient {i}")
+        rel = max(rel, ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item())
+    tol = TOL[("field_grid_bwd", "float32")]
+    name = f"R={R} C={C} {'v2 concat' if concat else 'v1 sum'}"
+    check(rel <= tol, f"field_grid backward {name}: rel err {rel} > {tol}")
+    del ref
+    ms = cuda_ms(lambda: torch.autograd.grad(outs, ins, (g_sdf, g_def), retain_graph=True), 3,
+                 warmup=1)
+
+    def plain():
+        o = fg.field_grid_reference(*ins, 1.0, 0.5, concat)
+        torch.autograd.grad(o, ins, (g_sdf, g_def))
+
+    plain_ms = cuda_ms(plain, 2, warmup=1)
+    row = {"phase": "kernel_case", "kernel": "field_grid_bwd", "site": name, "dtype": "float32",
+           "what": "slab recompute in plain PyTorch (no kernel), 8 x-slabs",
+           "R": R, "max_rel_err": rel, "tol": tol, "ms": ms,
+           "plain_fwd_plus_bwd_whole_grid_ms": plain_ms}
+    emit(row)
+    return row
+
+
 def phase_kernels():
     import torch
 
@@ -213,6 +380,14 @@ def phase_kernels():
             rows.append(attention_case(site, BH, L, Lk, D, dtype_name, gen))
     rows.append(field_grid_case(160, 32, False, gen))
     rows.append(field_grid_case(160, 32, True, gen))
+    for site, BH, L, Lk, D, _ in TRAIN_ATTN_SHAPES + RAGGED_SHAPES:
+        rows += training_attention_case(site, BH, L, Lk, D, "bfloat16", gen)
+        if "joint 6 planes" in site and L == 6144 or D == 512 or site.startswith("ragged"):
+            rows += training_attention_case(site, BH, L, Lk, D, "float32", gen)
+        torch.cuda.empty_cache()
+    rows.append(field_grid_backward_case(160, 32, False, gen))
+    rows.append(field_grid_backward_case(40, 32, True, gen))
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -272,8 +447,8 @@ def phase_reference():
     torch.cuda.empty_cache()
 
 
-def _profile_split(prof, top: int = 10):
-    """Device-busy ms of the whole profiled run, of each pipeline stage, and the
+def _profile_split(prof, stages=STAGES, top: int = 10):
+    """Device-busy ms of the whole profiled run, of each of its ``stages``, and the
     ``top`` heaviest kernels by name.
 
     A stage's ``record_function`` range also shows on the device timeline, as a
@@ -287,12 +462,12 @@ def _profile_split(prof, top: int = 10):
 
     cuda = torch.autograd.DeviceType.CUDA
     events = [e for e in prof.events() if e.device_type == cuda]
-    spans = sorted((e.time_range.start, e.key) for e in events if e.key in STAGES)
+    spans = sorted((e.time_range.start, e.key) for e in events if e.key in stages)
     starts = [t for t, _ in spans]
-    stage_ms = dict.fromkeys(STAGES, 0.0)
+    stage_ms = dict.fromkeys(stages, 0.0)
     total = 0.0
     for e in events:
-        if e.key in STAGES or e.is_user_annotation:
+        if e.key in stages or e.is_user_annotation:
             continue
         ms = (e.time_range.end - e.time_range.start) / 1e3
         total += ms
@@ -301,7 +476,7 @@ def _profile_split(prof, top: int = 10):
             stage_ms[spans[i][1]] += ms
     kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:90])
                       for e in prof.key_averages()
-                      if e.device_type == cuda and e.key not in STAGES
+                      if e.device_type == cuda and e.key not in stages
                       and not e.is_user_annotation), reverse=True)
     return (total, stage_ms, sorted({k for _, k in spans}),
             [{"ms": r[0], "calls": r[1], "name": r[2]} for r in kernels[:top]])
@@ -404,26 +579,297 @@ def phase_pipeline():
     return launches
 
 
-def kernels_line(rows, launches):
-    """One entry per kernel, with the numbers of its heaviest main-path shape."""
-    picks = {
-        "flash_attn_fwd": [r for r in rows if r["kernel"] == "flash_attn_fwd"
-                           and r["dtype"] == "bfloat16" and r["L"] == 6144][0],
-        "field_grid": [r for r in rows if r["kernel"] == "field_grid" and "v1" in r["site"]][0],
-    }
+def phase_train_reference():
+    """The small model's generator backward and update: card (kernels, with and
+    without gradient checkpointing) against the CPU (plain versions), f32."""
+    import torch
+    from triplaneturbo_torch.ops import field_grid as fg
+    from triplaneturbo_torch.ops import flash_attention as fa
+    from triplaneturbo_torch.systems.trainer import TrainerConfig, TriplaneTurboTrainer
+
+    def build(device, checkpoint):
+        return TriplaneTurboTrainer.build(
+            TrainerConfig(), seed=0, device=device,
+            space_generator_overrides=dict(SMALL_SG, gradient_checkpoint=checkpoint))
+
+    trainers = {"cpu": build("cpu", False), "cuda": build("cuda", False),
+                "cuda_checkpoint": build("cuda", True)}
+    # adapter ``up`` leaves start at zero; make them nonzero so that every adapter leaf
+    # gets a gradient, then give all three trainers the same weights
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for n, p in trainers["cpu"].geometry.named_parameters():
+            if n.endswith(".up") or ".up." in n:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    state = trainers["cpu"].geometry.state_dict()
+    for name in ("cuda", "cuda_checkpoint"):
+        trainers[name].geometry.load_state_dict(state)
+    r = SMALL_KW["latent_resolution"]
+    latent = torch.randn((2, 6, r, r, 4), generator=gen)
+    noise = torch.randn((2, 6, r, r, 4), generator=gen)
+    text = torch.randn((2, 77, SMALL_SG["cross_attention_dim"]), generator=gen)
+    plane = r * 2 ** (len(SMALL_SG["vae_block_out_channels"]) - 1)
+    g1 = torch.randn((2, 6, plane, plane, SMALL_SG["output_dim"] // 2), generator=gen) * 0.1
+    g2 = torch.randn(g1.shape, generator=gen) * 0.1
+    t = 499
+
+    grads, params, launches = {}, {}, {}
+    for name, tr in trainers.items():
+        dev = tr.schedule.betas.device
+        fa.LAUNCHES = fa.LAUNCHES_STATS = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKDV = 0
+        fg.LAUNCHES = 0
+        g = tr._stage_student_space(latent.to(dev), t, {"cond_local": text.to(dev)},
+                                    g1.to(dev), g2.to(dev), noise.to(dev))
+        check(tr._stage_update({n: x * tr.cfg.num_parts_training for n, x in g.items()}),
+              f"train_reference: the update on {name} was skipped")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches[name] = {"flash_attn_fwd": fa.LAUNCHES, "flash_attn_fwd_stats": fa.LAUNCHES_STATS,
+                          "flash_attn_bwd_dq": fa.LAUNCHES_BWD_DQ,
+                          "flash_attn_bwd_dkdv": fa.LAUNCHES_BWD_DKDV}
+        grads[name] = {n: x.float().cpu() for n, x in g.items()}
+        params[name] = {n: p.detach().float().cpu() for n, p in tr.params_train.items()}
+    check(not any(launches["cpu"].values()), "train_reference: a kernel launched on the CPU")
+    n_sites = launches["cuda"]["flash_attn_fwd_stats"]
+    check(n_sites > 0 and launches["cuda"] == {
+        "flash_attn_fwd": 0, "flash_attn_fwd_stats": n_sites, "flash_attn_bwd_dq": n_sites,
+        "flash_attn_bwd_dkdv": n_sites}, f"train_reference: launches {launches['cuda']}")
+    # checkpointed: every block runs its forward twice with grad enabled (the first pass
+    # drops what it saves, the backward recomputes it), and the VAE decodes plane by
+    # plane (6 attention calls in place of 1)
+    check(launches["cuda_checkpoint"] == {
+        "flash_attn_fwd": 0, "flash_attn_fwd_stats": 2 * (n_sites + 5),
+        "flash_attn_bwd_dq": n_sites + 5, "flash_attn_bwd_dkdv": n_sites + 5},
+        f"train_reference: checkpointed launches {launches['cuda_checkpoint']}, plain {n_sites}")
+
+    row = {"phase": "train_reference", "what": "small model, program B-G + guarded Adan update, "
+           "card (kernels) vs CPU (plain), f32", "rel_tol": SMALL_REL_TOL, "launches": launches,
+           "leaves": len(grads["cpu"])}
+    lr = trainers["cpu"].cfg.learning_rate
+    for name in ("cuda", "cuda_checkpoint"):
+        worst_g = worst_p = 0.0
+        skipped = total = 0
+        for n, ref in grads["cpu"].items():
+            got = grads[name][n]
+            check(bool(torch.isfinite(got).all()), f"train_reference: non-finite gradient {n}")
+            scale = ref.abs().max().clamp_min(1e-12)
+            if n.startswith("field."):
+                check(not bool(got.any()) and not bool(ref.any()),
+                      f"train_reference: the generator backward reached {n}")
+                continue
+            check(bool(ref.any()), f"train_reference: zero CPU gradient for {n}")
+            rel = ((got - ref).abs().max() / scale).item()
+            worst_g = max(worst_g, rel)
+            check(rel <= SMALL_REL_TOL, f"train_reference {name}: gradient {n} rel err {rel}")
+            # Adan's first step moves every element by lr * sign(g): where the gradient is at
+            # rounding level its sign is noise, so hold the elements with a settled gradient
+            settled = ref.abs() > 1e-3 * scale
+            total += ref.numel()
+            skipped += int((~settled).sum())
+            p_ref, p_got = params["cpu"][n], params[name][n]
+            rel = ((p_got - p_ref).abs()[settled].max() / p_ref.abs().max().clamp_min(lr)).item()
+            worst_p = max(worst_p, rel)
+            check(rel <= SMALL_REL_TOL, f"train_reference {name}: parameter {n} rel err {rel}")
+        row[f"{name}_grad_rel_err"] = worst_g
+        row[f"{name}_param_rel_err"] = worst_p
+        row[f"{name}_unsettled_elements"] = skipped
+        row["elements"] = total
+    emit(row)
+    del trainers
+    torch.cuda.empty_cache()
+
+
+def _training_part(trainer, latent, t, text, scalars, gen, R, counts_expected=None):
+    """One denoise part of the staged step, as far as it is ported.
+
+    The no-grad generator forward (program R's first half), the mesh branch's
+    isosurface differentiated from a seeded vertex cotangent (the stand-in for the
+    rasterizer and the teachers), and program B-G with that cotangent plus a seeded
+    one in place of the volume branch's. Returns the next latent and the part's
+    gradients for every trainable leaf.
+    """
+    import torch
+    from torch.profiler import record_function
+    from triplaneturbo_torch.systems.trainer import mesh_branch_isosurface
+
+    noise = torch.randn(latent.shape, generator=gen, device=latent.device)
+    with record_function("generator_forward"), torch.no_grad():
+        denoised, space_cache = trainer._denoise_decode(latent, t, text, noise)
+    with record_function("mesh_branch"):
+        sc = space_cache.detach().requires_grad_()
+        meshes = mesh_branch_isosurface(trainer.geometry, sc, R, scalars["sdf_grad_shrink"],
+                                        scalars["def_grad_shrink"])
+        verts = torch.stack([m.verts for m in meshes])
+        mask = torch.stack([m.vert_mask for m in meshes])
+        cot = torch.randn(verts.shape, generator=gen, device=verts.device) * mask[..., None]
+        field = {n: p for n, p in trainer.params_train.items() if n.startswith("field.")}
+        g = torch.autograd.grad(verts, [sc, *field.values()], cot, allow_unused=True)
+        g_space_1st = g[0]
+        n_verts = [int(m.n_verts) for m in meshes]
+    with record_function("generator_backward"):
+        g_space_2nd = torch.randn(sc.shape, generator=gen, device=sc.device) * 1e-3
+        grads = trainer._stage_student_space(latent, t, text, g_space_1st, g_space_2nd, noise)
+    for (n, p), gf in zip(field.items(), g[1:]):
+        if gf is not None:
+            grads[n] = grads[n] + gf
+    return denoised.detach(), grads, n_verts
+
+
+def phase_training():
+    """The student's training backward at full width: 2 prompts, bf16, R = 160."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+    from triplaneturbo_torch.ops import field_grid as fg
+    from triplaneturbo_torch.ops import flash_attention as fa
+    from triplaneturbo_torch.systems.trainer import (
+        TrainerConfig,
+        TriplaneTurboTrainer,
+        sample_timesteps,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = TriplaneTurboTrainer.build(
+        TrainerConfig(), seed=0, device="cuda",
+        space_generator_overrides=dict(dtype_str="bfloat16"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = trainer.cfg
+    R = 160
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    # seeded text states stand in for the prompt processor (OpenCLIP-H states, 77 x 1024)
+    text = {"cond_local": torch.randn((TRAIN_PROMPTS, 77, 1024), generator=gen, device="cuda")}
+    # kept on the host, so that the copy does not count in the peak device memory
+    before = {n: p.detach().cpu() for n, p in trainer.geometry.named_parameters()}
+
+    # launches a part: the no-grad forward takes the plain forward kernel once per site;
+    # B-G takes the stats forward and both backward kernels once per site; the mesh
+    # branch takes the field-grid kernel once per prompt
+    expected = {"flash_attn_fwd": FLASH_PER_PASS, "flash_attn_fwd_stats": FLASH_PER_PASS,
+                "flash_attn_bwd_dq": FLASH_PER_PASS, "flash_attn_bwd_dkdv": FLASH_PER_PASS,
+                "field_grid": TRAIN_PROMPTS}
+
+    def reset_counts():
+        fa.LAUNCHES = fa.LAUNCHES_STATS = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKDV = 0
+        fg.LAUNCHES = 0
+
+    def read_counts():
+        return {"flash_attn_fwd": fa.LAUNCHES, "flash_attn_fwd_stats": fa.LAUNCHES_STATS,
+                "flash_attn_bwd_dq": fa.LAUNCHES_BWD_DQ, "flash_attn_bwd_dkdv": fa.LAUNCHES_BWD_DKDV,
+                "field_grid": fg.LAUNCHES}
+
+    totals = dict.fromkeys(expected, 0)
+    part_ms, step_ms, verts_seen = [], [], []
+    for step in range(TRAIN_STEPS):
+        timesteps = sample_timesteps(trainer.all_timesteps, cfg.num_parts_training, trainer.rng)
+        scalars = trainer.host_scalars()
+        latent = torch.randn((TRAIN_PROMPTS, 6, 32, 32, 4), generator=gen, device="cuda")
+        acc = None
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        for t in timesteps:
+            reset_counts()
+            t_part = time.perf_counter()
+            latent, grads, n_verts = _training_part(trainer, latent, int(t), text, scalars, gen, R)
+            torch.cuda.synchronize()
+            part_ms.append((time.perf_counter() - t_part) * 1e3)
+            counts = read_counts()
+            check(counts == expected, f"training step {step} t={t}: launches {counts}, "
+                  f"expected {expected}")
+            for k_, v_ in counts.items():
+                totals[k_] += v_
+            for n, g in grads.items():
+                check(bool(torch.isfinite(g).all()), f"training: non-finite gradient {n}")
+            verts_seen.append(n_verts)
+            acc = trainer.accumulate(acc, grads)
+            del grads
+        check(trainer._stage_update(acc), f"training step {step}: the update was skipped")
+        trainer.global_step += 1
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t_step) * 1e3)
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    check(trainer.optimizer.total_notfinite == 0, "training: a gradient batch was not finite")
+    changed = {n for n, p in trainer.geometry.named_parameters()
+               if not torch.equal(p.detach().cpu(), before[n])}
+    check(changed <= set(trainer.trainable), "training: a frozen leaf changed: "
+          f"{sorted(changed - set(trainer.trainable))[:5]}")
+    ups = [n for n in trainer.trainable if n.endswith(".up") or n.endswith(".up.weight")]
+    check(len(ups) > 100 and all(n in changed for n in ups),
+          f"training: adapter up leaves unchanged: {[n for n in ups if n not in changed][:5]}")
+    for n, p in trainer.params_train.items():
+        check(bool(torch.isfinite(p).all()), f"training: non-finite parameter {n}")
+    del before
+
+    # one more part under the profiler: device-busy ms by stage, and the heaviest device ops
+    scalars = trainer.host_scalars()
+    latent = torch.randn((TRAIN_PROMPTS, 6, 32, 32, 4), generator=gen, device="cuda")
+    with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _training_part(trainer, latent, 999, text, scalars, gen, R)
+        torch.cuda.synchronize()
+    busy_ms, stage_busy_ms, spanned, top = _profile_split(prof, TRAIN_STAGES, top=12)
+    check(busy_ms > 0, "the profiler recorded no device time in the training part")
+    check(spanned == sorted(TRAIN_STAGES), f"training stages with a device span: {spanned}")
+    kernel_busy_ms = {name: sum(e.self_device_time_total for e in prof.key_averages()
+                                if symbol in e.key) / 1e3
+                      for name, symbol in (("flash_attn_fwd(+stats)", "flash_fwd_kernel"),
+                                           ("flash_attn_bwd_dq", "flash_bwd_dq_kernel"),
+                                           ("flash_attn_bwd_dkdv", "flash_bwd_dkdv_kernel"),
+                                           ("field_grid", "field_grid_kernel"))}
+    timed_parts = part_ms[cfg.num_parts_training:]
+    timed_steps = step_ms[1:]
+    median_part = sorted(timed_parts)[len(timed_parts) // 2]
+    emit({"phase": "training", "config": "SD-2.1 student UNet + retrofit VAE (output_dim 64) + "
+          "field MLPs, 2 prompts, latents 2x6x32x32x4, R=160, bf16 frozen backbone, f32 "
+          "adapters, random weights seed 0, no gradient checkpointing",
+          "stand_ins": "seeded vertex cotangent for the rasterizer and teachers, seeded "
+          "space-cache cotangent (x1e-3) for the volume branch, seeded text states for the "
+          "prompt processor",
+          "trainable_leaves": len(trainer.trainable),
+          "trainable_params": sum(p.numel() for p in trainer.params_train.values()),
+          "build_s": build_s, "steps": TRAIN_STEPS, "parts_per_step": cfg.num_parts_training,
+          "warmup_step_ms": step_ms[0], "step_ms": timed_steps, "part_ms": timed_parts,
+          "part_ms_median": median_part,
+          "part_device_busy_ms": busy_ms,
+          "part_device_idle_share": max(0.0, 1.0 - busy_ms / median_part),
+          "stage_device_busy_ms": stage_busy_ms, "kernel_device_busy_ms": kernel_busy_ms,
+          "top_kernels": top, "launches_per_part": expected, "launches": totals,
+          "verts_per_item": verts_seen[-1], "total_notfinite": trainer.optimizer.total_notfinite,
+          "changed_leaves": len(changed), "max_memory_allocated_bytes": peak_bytes})
+    return totals
+
+
+def kernels_line(rows, serving, training):
+    """One entry per kernel, with the numbers of its heaviest main-path shape (bf16, the
+    joint self-attention; R = 160 for the field grid). ``launches`` is the count from
+    the kernel's own main path: serving for the forward and the field grid, training
+    for the stats forward and the backward kernels; ``launches_by_path`` has both."""
+    csrc = "triplaneturbo_torch/csrc/"
+    pallas = "triplaneturbo_tpu/ops/"
     meta = {
-        "flash_attn_fwd": ("triplaneturbo_torch/csrc/flash_attn_fwd.cu",
-                           "triplaneturbo_tpu/ops/attention_pallas.py:34"),
-        "field_grid": ("triplaneturbo_torch/csrc/field_grid.cu",
-                       "triplaneturbo_tpu/ops/field_grid_pallas.py:48"),
+        "flash_attn_fwd": (csrc + "flash_attn_fwd.cu", pallas + "attention_pallas.py:34", "serving"),
+        "flash_attn_fwd_stats": (csrc + "flash_attn_fwd.cu", pallas + "attention_pallas.py:73",
+                                 "training"),
+        "flash_attn_bwd_dq": (csrc + "flash_attn_bwd.cu", pallas + "attention_pallas.py:148",
+                              "training"),
+        "flash_attn_bwd_dkdv": (csrc + "flash_attn_bwd.cu", pallas + "attention_pallas.py:180",
+                                "training"),
+        "field_grid": (csrc + "field_grid.cu", pallas + "field_grid_pallas.py:48", "serving"),
     }
     out = []
-    for name, r in picks.items():
-        source, replaces = meta[name]
+    for name, (source, replaces, path) in meta.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        if name == "field_grid":
+            r = [x for x in mine if "v1" in x["site"]][0]
+        else:
+            r = [x for x in mine if x["dtype"] == "bfloat16" and x["L"] == 6144][0]
+        by_path = {"serving": serving.get(name, 0), "training": training.get(name, 0)}
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max(
-                x["max_abs_err"] for x in rows if x["kernel"] == name),
+            "launches": by_path[path], "launches_by_path": by_path,
+            "max_abs_err": max(x["max_abs_err"] for x in mine),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["site"],
         })
@@ -444,8 +890,12 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     phase_reference()
-    launches = phase_pipeline()
-    emit(kernels_line(rows, launches))
+    phase_train_reference()
+    serving = phase_pipeline()
+    training = phase_training()
+    for name, count in {**training, **{k: serving[k] for k in ("flash_attn_fwd", "field_grid")}}.items():
+        check(count > 0, f"{name} was launched no time on its main path")
+    emit(kernels_line(rows, serving, training))
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

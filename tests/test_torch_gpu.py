@@ -51,6 +51,96 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, BH, L, Lk, D):
     assert (out.float() - ref).abs().max().item() <= tol
 
 
+BWD_CASES = [(3, 256, 256, 64), (2, 700, 700, 64), (2, 300, 1200, 64), (4, 300, 77, 64),
+             (2, 1, 5, 64), (2, 200, 130, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,L,Lk,D", BWD_CASES)
+def test_flash_stats_forward_matches_plain(cuda, dtype, BH, L, Lk, D):
+    gen = torch.Generator(device="cuda").manual_seed(L * 7 + Lk)
+    q, k, v = (_randn(gen, BH, n, D, dtype=dtype) for n in (L, Lk, Lk))
+    before = fa.LAUNCHES_STATS
+    out, lse = fa._launch(q, k, v, return_stats=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_STATS == before + 1
+    ref, lse_ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), return_stats=True)
+    assert lse.dtype == torch.float32 and lse.shape == (BH, L)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2 * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+    # lse is f32 for either input type: sums in another order than logsumexp
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    # the same output as the forward without stats, bit for bit
+    assert torch.equal(out, fa.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,L,Lk,D", BWD_CASES)
+def test_flash_backward_kernels_match_plain(cuda, dtype, BH, L, Lk, D):
+    """Autograd through ``flash_attention`` on the card (stats forward, dq and
+    dk/dv kernels) against the plain backward on the same inputs in f32."""
+    gen = torch.Generator(device="cuda").manual_seed(L * 11 + Lk)
+    q, k, v = (_randn(gen, BH, n, D, dtype=dtype).requires_grad_() for n in (L, Lk, Lk))
+    g = _randn(gen, BH, L, D, dtype=dtype)
+    counts = (fa.LAUNCHES, fa.LAUNCHES_STATS, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKDV)
+    out = fa.flash_attention(q, k, v)
+    # the cotangent arrives non-contiguous, as it does through the dispatcher's transpose
+    g_nc = g.transpose(1, 2).contiguous().transpose(1, 2)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), g_nc)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.LAUNCHES_STATS, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKDV) == (
+        counts[0], counts[1] + 1, counts[2] + 1, counts[3] + 1)
+    qf, kf, vf = (t.detach().float() for t in (q, k, v))
+    o_ref, lse_ref = fa.flash_attention_reference(qf, kf, vf, return_stats=True)
+    refs = fa.flash_attention_bwd_reference(qf, kf, vf, o_ref, lse_ref, g.float())
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert got.dtype == dtype and got.shape == ref.shape
+        # f32: sums run in another order; bf16: the result's own rounding is 2^-9 of its
+        # largest value, and delta is taken from the bf16-rounded output
+        tol = 1e-4 if dtype == torch.float32 else 1e-2 * ref.abs().max().item()
+        err = (got.float() - ref).abs().max().item()
+        assert err <= tol, (name, err, tol)
+
+
+def test_flash_backward_is_the_same_from_run_to_run(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (_randn(gen, 4, n, 64).requires_grad_() for n in (700, 333, 333))
+    g = _randn(gen, 4, 700, 64)
+    a = torch.autograd.grad(fa.flash_attention(q, k, v), (q, k, v), g)
+    b = torch.autograd.grad(fa.flash_attention(q, k, v), (q, k, v), g)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_attention_without_grad_keeps_the_plain_forward(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = _randn(gen, 2, 256, 64).requires_grad_()
+    counts = (fa.LAUNCHES, fa.LAUNCHES_STATS)
+    with torch.no_grad():
+        fa.flash_attention(q, q, q)
+    fa.flash_attention(q.detach(), q.detach(), q.detach())
+    assert (fa.LAUNCHES, fa.LAUNCHES_STATS) == (counts[0] + 2, counts[1])
+
+
+@pytest.mark.parametrize("R,concat", [(16, False), (24, True), (37, False)])
+def test_field_grid_backward_matches_autograd_of_plain(cuda, R, concat):
+    gen = torch.Generator(device="cuda").manual_seed(R)
+    C = 32
+    cin = 3 * C if concat else C
+    ins = [_randn(gen, R, R, C, scale=0.3) for _ in range(3)]
+    ins += [_randn(gen, cin, 64, scale=0.1), _randn(gen, 64, 64, scale=0.1),
+            _randn(gen, 64, 1, scale=0.1), _randn(gen, cin, 64, scale=0.1),
+            _randn(gen, 64, 64, scale=0.1), _randn(gen, 64, 3, scale=0.1)]
+    ins = [t.requires_grad_() for t in ins]
+    before = fg.LAUNCHES
+    sdf, deform = fg.fused_field_grid(*ins, 1.0, 0.5, concat)
+    assert fg.LAUNCHES == before + 1
+    g_sdf, g_def = _randn(gen, R, R, R), _randn(gen, 3, R, R, R)
+    got = torch.autograd.grad((sdf, deform), ins, (g_sdf, g_def))
+    ref = torch.autograd.grad(fg.field_grid_reference(*ins, 1.0, 0.5, concat), ins, (g_sdf, g_def))
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item())
+
+
 def test_attention_dispatcher_gate_on_cuda(cuda):
     gen = torch.Generator(device="cuda").manual_seed(0)
     before = fa.LAUNCHES

@@ -314,13 +314,16 @@ def test_port_imports_nothing_of_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'triplaneturbo_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'triplaneturbo_tpu'))\n"
         "assert not bad, bad\n"
+        "for name in ('systems.trainer', 'systems.optimizers', 'utils.schedule', 'utils.weights',\n"
+        "             'ops.flash_attention', 'ops.field_grid', 'pipelines.triplaneturbo_text_to_3d'):\n"
+        "    assert 'triplaneturbo_torch.' + name in sys.modules, name\n"
         "print(len([n for n in sys.modules if n.startswith('triplaneturbo_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, check=True)
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 24
 
 
 def test_pipeline_defaults_to_cuda_and_raises_without_a_card():

@@ -1,10 +1,13 @@
 // Flash-attention forward for Hopper (sm_90a): non-causal softmax(Q K^T / sqrt(D)) V.
 //
-// Replaces the Pallas kernel `_flash_kernel` of
+// Replaces the Pallas kernels `_flash_kernel` and `_flash_kernel_stats` of
 // triplaneturbo_tpu/ops/attention_pallas.py (called through
 // `_fused_attention_fwd_impl` / `fused_attention`). Same function: scale
 // 1/sqrt(D), keys at or past Lk score -1e30, running max and normalizer in
-// f32, output = acc / max(l, 1e-30) cast to the input type.
+// f32, output = acc / max(l, 1e-30) cast to the input type. The stats form
+// (entry point `flash_attn_fwd_stats`) also writes the per-row logsumexp
+// lse = m + log(max(l, 1e-30)) in f32, which the backward kernels of
+// flash_attn_bwd.cu read; the plain form passes no lse pointer and writes none.
 //
 // What bounds it on an H100: at the joint self-attention shapes (L = 6144,
 // D = 64) the work is ~4 L^2 D FLOPs against ~4 L D bytes of operands, far
@@ -83,8 +86,8 @@ using Tiles512 = Tiles<512, 32, 32, 2, 2, 4, 16>;
 template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int lq, int lk,
-                 float scale) {
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                 int lq, int lk, float scale) {
   constexpr int D = C::D, BQ = C::BQ, BK = C::BK, DP = C::DP, BKP = C::BKP;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem + C::Q_OFF;
@@ -239,10 +242,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < C::OC; ++j)
       ob[(size_t)qr * D + ox + j * C::O_COLS] = from_f32<T>(acc[i][j] * inv);
   }
+  // the stats form: per-row logsumexp (the loop's last barrier made Ms and Ls final)
+  if (lse != nullptr) {
+    for (int r = tid; r < BQ; r += kThreads)
+      if (q0 + r < lq) lse[bh * (size_t)lq + q0 + r] = Ms[r] + logf(fmaxf(Ls[r], 1e-30f));
+  }
 }
 
 template <typename T, typename C>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                    int lq, int lk, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, C>;
   cudaError_t err =
@@ -251,16 +259,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid((lq + C::BQ - 1) / C::BQ, bh);
   kern<<<grid, kThreads, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lq, lk, 1.0f / sqrtf((float)C::D));
+      static_cast<T*>(o), lse, lq, lk, 1.0f / sqrtf((float)C::D));
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int bh,
-                       int lq, int lk, int d, cudaStream_t stream) {
-  if (d == 64) return launch<T, Tiles64>(q, k, v, o, bh, lq, lk, stream);
-  if (d == 512) return launch<T, Tiles512>(q, k, v, o, bh, lq, lk, stream);
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int bh, int lq, int lk, int d, cudaStream_t stream) {
+  if (d == 64) return launch<T, Tiles64>(q, k, v, o, lse, bh, lq, lk, stream);
+  if (d == 512) return launch<T, Tiles512>(q, k, v, o, lse, bh, lq, lk, stream);
   return cudaErrorInvalidValue;
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int lq,
+             int lk, int d, int dtype, void* stream) {
+  if (bh <= 0 || lq <= 0 || lk <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dispatch_d<float>(q, k, v, o, lse, bh, lq, lk, d, s);
+  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, lse, bh, lq, lk, d, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -269,9 +286,13 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int
 // 1 = bfloat16. Returns the CUDA error code of the launch (0 on success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                               int bh, int lq, int lk, int d, int dtype, void* stream) {
-  if (bh <= 0 || lq <= 0 || lk <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_d<float>(q, k, v, o, bh, lq, lk, d, s);
-  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, bh, lq, lk, d, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(q, k, v, o, nullptr, bh, lq, lk, d, dtype, stream);
+}
+
+// The same forward, which also writes lse [bh, lq] in float32.
+extern "C" int flash_attn_fwd_stats(const void* q, const void* k, const void* v, void* o,
+                                    void* lse, int bh, int lq, int lk, int d, int dtype,
+                                    void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(q, k, v, o, static_cast<float*>(lse), bh, lq, lk, d, dtype, stream);
 }

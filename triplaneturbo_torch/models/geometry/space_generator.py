@@ -7,7 +7,9 @@ Counterpart of ``triplaneturbo_tpu/models/geometry/space_generator.py``:
 * ``decode``: VAE-decode latents to ``[B, P, 8H, 8W, output_dim]`` planes,
   without latent scaling.
 
-The ``gradient_checkpoint`` branch of the JAX decode (training) is not ported.
+With ``gradient_checkpoint`` (training memory) the UNet and VAE blocks are
+checkpointed and the six planes decode one after another, each under its own
+checkpoint, as in the JAX decode.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ class SpaceGeneratorConfig:
     cross_lora_type: str = "vanilla"
     locon_type: str = "vanilla_v1"
     n_planes: int = 6
+    gradient_checkpoint: bool = False
     dtype_str: str = "float32"
     # architecture size knobs (defaults = SD-2.1-base; small values for tests)
     block_out_channels: tuple = (320, 640, 1280, 1280)
@@ -54,7 +57,7 @@ class TriplaneSpaceGenerator(nn.Module):
             sd21_student_config(self_lora_type=c.self_lora_type,
                                 cross_lora_type=c.cross_lora_type, locon_type=c.locon_type,
                                 rank=c.rank("self_lora"), n_planes=c.n_planes,
-                                dtype_str=c.dtype_str),
+                                remat=c.gradient_checkpoint, dtype_str=c.dtype_str),
             block_out_channels=tuple(c.block_out_channels),
             layers_per_block=c.layers_per_block,
             cross_attention_dim=c.cross_attention_dim,
@@ -63,7 +66,7 @@ class TriplaneSpaceGenerator(nn.Module):
         self.unet = UNet2DConditionModel(unet_cfg)
         vae_cfg = replace(
             student_vae_config(output_dim=c.output_dim, rank=c.rank("locon"),
-                               dtype_str=c.dtype_str),
+                               dtype_str=c.dtype_str, remat=c.gradient_checkpoint),
             block_out_channels=tuple(c.vae_block_out_channels),
             layers_per_block=c.vae_layers_per_block,
         )
@@ -93,5 +96,12 @@ class TriplaneSpaceGenerator(nn.Module):
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """[B, P, h, w, 4] -> [B, P, 8h, 8w, output_dim] feature planes, float32."""
         B, P, h, w, C = latents.shape
+        if self.cfg.gradient_checkpoint and torch.is_grad_enabled():
+            # the decoder is plane-independent: one plane at a time cuts the
+            # peak activation memory sixfold for the same arithmetic
+            from torch.utils.checkpoint import checkpoint
+
+            return torch.stack([checkpoint(self.vae.decode, latents[:, p], use_reentrant=False)
+                                for p in range(P)], dim=1)
         planes = self.vae.decode(latents.reshape(B * P, h, w, C))
         return planes.reshape(B, P, *planes.shape[-3:])

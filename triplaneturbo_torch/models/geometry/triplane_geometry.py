@@ -1,14 +1,18 @@
 """The triplane geometry: space generator + implicit field, one module.
 
 Counterpart of ``triplaneturbo_tpu/models/geometry/triplane_geometry.py``
-(the JAX package's registry decorator is not carried over).
+(the JAX package's registry decorator is not carried over). The trainable
+set -- the adapters, the VAE ``conv_out`` retrofit and the field MLPs -- is a
+predicate on parameter names (:func:`is_trainable`), applied to a module by
+:func:`mark_trainable`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, List, Optional
 
+import torch
 from torch import nn
 
 from ..networks import MLPConfig
@@ -64,3 +68,34 @@ class TriplaneGeometry(nn.Module):
 
     def export(self, points, space_cache):
         return self.field.export(points, space_cache)
+
+
+def is_trainable(name: str) -> bool:
+    """The JAX ``trainable_mask`` rule on a dotted parameter name: adapter
+    parameters (lora / locon), the VAE ``conv_out`` retrofit, and everything
+    under ``field`` (the sdf, feature and deformation MLPs)."""
+    low = name.lower()
+    if "lora" in low or "locon" in low or "retrofit" in low:
+        return True
+    return "field" in low.split(".")
+
+
+@torch.no_grad()
+def mark_trainable(geometry: TriplaneGeometry) -> List[str]:
+    """Set ``requires_grad`` by :func:`is_trainable`; return the trainable names.
+
+    With ``dtype_str == "bfloat16"`` the JAX trainer stores every frozen f32
+    leaf in bf16. The port's frozen backbone is built in bf16 already; the few
+    frozen leaves that compute in f32 (``post_quant_conv``) take the same
+    bf16-rounded values and keep f32 storage, which their f32 input needs.
+    """
+    bf16 = geometry.cfg.space_generator.dtype_str == "bfloat16"
+    names = []
+    for name, p in geometry.named_parameters():
+        train = is_trainable(name)
+        p.requires_grad_(train)
+        if train:
+            names.append(name)
+        elif bf16 and p.dtype == torch.float32:
+            p.copy_(p.to(torch.bfloat16).float())
+    return names

@@ -1,9 +1,12 @@
 """DDIM sampling schedule and step.
 
-Counterpart of ``triplaneturbo_tpu/models/schedulers.py`` (the inference
-part: the schedule, the shifted DDIM timesteps and the deterministic DDIM
-step). The β schedule is computed in float64 numpy and then cast to float32,
-as the JAX package does, so both packages hold the same buffers.
+Counterpart of ``triplaneturbo_tpu/models/schedulers.py``: the schedule, the
+shifted DDIM timesteps, the deterministic DDIM step, and ``add_noise`` for
+training. ``pred_original`` and ``pred_epsilon`` take ᾱ_t itself
+(:func:`alpha_at` reads it for a timestep) where the JAX functions take t.
+The DDPM step waits for the teachers. The β schedule is computed in float64
+numpy and then cast to float32, as the JAX package does, so both packages
+hold the same buffers.
 """
 
 from __future__ import annotations
@@ -51,6 +54,19 @@ def make_schedule(config: SchedulerConfig = SchedulerConfig(),
 
     return Schedule(betas=f32(betas), alphas_cumprod=f32(alphas_cumprod),
                     final_alpha_cumprod=f32(final), config=config)
+
+
+def alpha_at(sched: Schedule, t, ndim: int) -> torch.Tensor:
+    """ᾱ_t for t ``[]`` or ``[B]``, shaped to broadcast against an ``ndim``-d sample."""
+    t = torch.as_tensor(t, dtype=torch.long, device=sched.alphas_cumprod.device)
+    a = sched.alphas_cumprod[t]
+    return a.reshape(a.shape + (1,) * (ndim - a.ndim))
+
+
+def add_noise(sched: Schedule, original: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+    """q(x_t | x_0): sqrt(ᾱ_t) x₀ + sqrt(1-ᾱ_t) ε."""
+    a = alpha_at(sched, t, original.ndim)
+    return torch.sqrt(a) * original + torch.sqrt(1.0 - a) * noise
 
 
 def pred_original(sched: Schedule, model_output: torch.Tensor, a: torch.Tensor,

@@ -24,6 +24,7 @@ from .unet_blocks import (
     ResnetBlock2D,
     Upsample2D,
     _n_groups,
+    run_block,
     timestep_embedding,
 )
 
@@ -43,6 +44,7 @@ class UNetConfig:
     adapters: AdapterSpec = NO_ADAPTERS
     locon_type: str = "none"
     locon_rank: int = 16
+    remat: bool = False  # checkpoint every resnet and transformer block (training memory)
     dtype_str: str = "float32"
 
     @property
@@ -125,24 +127,24 @@ class UNet2DConditionModel(nn.Module):
         residuals = [h]
         for i in range(n_blocks):
             for j in range(cfg.layers_per_block):
-                h = getattr(self, f"down_{i}_res_{j}")(h, temb)
+                h = run_block(getattr(self, f"down_{i}_res_{j}"), cfg.remat, h, temb)
                 if i < n_blocks - 1:
-                    h = getattr(self, f"down_{i}_attn_{j}")(h, ctx)
+                    h = run_block(getattr(self, f"down_{i}_attn_{j}"), cfg.remat, h, ctx)
                 residuals.append(h)
             if i < n_blocks - 1:
                 h = getattr(self, f"down_{i}_downsample")(h)
                 residuals.append(h)
 
-        h = self.mid_res_0(h, temb)
-        h = self.mid_attn(h, ctx)
-        h = self.mid_res_1(h, temb)
+        h = run_block(self.mid_res_0, cfg.remat, h, temb)
+        h = run_block(self.mid_attn, cfg.remat, h, ctx)
+        h = run_block(self.mid_res_1, cfg.remat, h, temb)
 
         for i in range(n_blocks):
             for j in range(cfg.layers_per_block + 1):
                 h = torch.cat([h, residuals.pop()], dim=1)
-                h = getattr(self, f"up_{i}_res_{j}")(h, temb)
+                h = run_block(getattr(self, f"up_{i}_res_{j}"), cfg.remat, h, temb)
                 if i > 0:
-                    h = getattr(self, f"up_{i}_attn_{j}")(h, ctx)
+                    h = run_block(getattr(self, f"up_{i}_attn_{j}"), cfg.remat, h, ctx)
             if i < n_blocks - 1:
                 h = getattr(self, f"up_{i}_upsample")(h)
 
@@ -152,7 +154,7 @@ class UNet2DConditionModel(nn.Module):
 
 def sd21_student_config(self_lora_type: str = "hexa_v1", cross_lora_type: str = "vanilla",
                         locon_type: str = "vanilla_v1", rank: int = 16, n_planes: int = 6,
-                        dtype_str: str = "float32") -> UNetConfig:
+                        remat: bool = False, dtype_str: str = "float32") -> UNetConfig:
     """The triplane student UNet: SD-2.1-base plus adapters."""
     return UNetConfig(
         adapters=AdapterSpec(
@@ -166,5 +168,6 @@ def sd21_student_config(self_lora_type: str = "hexa_v1", cross_lora_type: str = 
         ),
         locon_type=locon_type,
         locon_rank=rank,
+        remat=remat,
         dtype_str=dtype_str,
     )

@@ -26,6 +26,17 @@ def _n_groups(groups: int, channels: int) -> int:
     return g
 
 
+def run_block(block: nn.Module, remat: bool, *args):
+    """Call ``block``; with ``remat`` under autograd, through
+    ``torch.utils.checkpoint`` (the JAX package's ``nn.remat``): the block's
+    activations are dropped after the forward and recomputed in the backward."""
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
+
+
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
                        downscale_freq_shift: float = 0.0,
                        max_period: float = 10000.0) -> torch.Tensor:

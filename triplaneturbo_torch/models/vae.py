@@ -5,7 +5,8 @@ student decoder with vanilla_v1 LoCon adapters, "basic" LoRA on the mid
 attention, and ``conv_out`` replaced by a 128 -> ``output_dim`` (64) conv.
 No latent scaling is applied before decoding. The public ``decode`` keeps the
 JAX layout (``[N, h, w, 4] -> [N, 8h, 8w, output_dim]``); inside, NCHW.
-The encoder (used only by the teachers) is not ported yet.
+The encoder (used only by the teachers) is not ported yet. ``remat``
+checkpoints every resnet block, as the JAX module does for training.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from torch import nn
 
 from .attention import AdapterSpec, Attention
 from .unet import DTYPES
-from .unet_blocks import AdaptedConv, ResnetBlock2D, Upsample2D, _n_groups
+from .unet_blocks import AdaptedConv, ResnetBlock2D, Upsample2D, _n_groups, run_block
 
 
 @dataclass(frozen=True)
@@ -31,6 +32,7 @@ class VAEConfig:
     attn_lora_type: str = "none"
     locon_type: str = "none"
     rank: int = 16
+    remat: bool = False  # checkpoint every resnet block (training memory)
     dtype_str: str = "float32"
 
     @property
@@ -86,13 +88,13 @@ class Decoder(nn.Module):
         """z [N, 4, h, w] -> [N, C_out, 8h, 8w] float32."""
         cfg = self.cfg
         h = self.conv_in(z.to(cfg.dtype))
-        h = self.mid_res_0(h, None)
+        h = run_block(self.mid_res_0, cfg.remat, h, None)
         h = self.mid_attn(h)
-        h = self.mid_res_1(h, None)
+        h = run_block(self.mid_res_1, cfg.remat, h, None)
         n_up = len(cfg.block_out_channels)
         for i in range(n_up):
             for j in range(cfg.layers_per_block + 1):
-                h = getattr(self, f"up_{i}_res_{j}")(h, None)
+                h = run_block(getattr(self, f"up_{i}_res_{j}"), cfg.remat, h, None)
             if i < n_up - 1:
                 h = getattr(self, f"up_{i}_upsample")(h)
         return self.conv_out_retrofit(F.silu(self.conv_norm_out(h))).float()
@@ -115,8 +117,8 @@ class AutoencoderKL(nn.Module):
         return self.decoder(h).permute(0, 2, 3, 1)
 
 
-def student_vae_config(output_dim: int = 64, rank: int = 16,
-                       dtype_str: str = "float32") -> VAEConfig:
+def student_vae_config(output_dim: int = 64, rank: int = 16, dtype_str: str = "float32",
+                       remat: bool = False) -> VAEConfig:
     """The retrofitted student decoder ('basic' attention LoRA, vanilla_v1 LoCon)."""
     return VAEConfig(output_dim=output_dim, attn_lora_type="basic", locon_type="vanilla_v1",
-                     rank=rank, dtype_str=dtype_str)
+                     rank=rank, remat=remat, dtype_str=dtype_str)

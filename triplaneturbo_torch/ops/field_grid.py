@@ -1,14 +1,19 @@
 """Fused triplane-grid field evaluation: SDF and deformation on the dense
 marching-cubes grid in one CUDA kernel.
 
-Counterpart of ``triplaneturbo_tpu/ops/field_grid_pallas.py`` (forward). The
+Counterpart of ``triplaneturbo_tpu/ops/field_grid_pallas.py``. The
 bias-free MLPs let the first layer distribute over the triplane sum, so
 ``_prep`` folds it into three per-plane ``[R², C] x [C, 128]`` products (plain
 PyTorch matmuls) and the kernel (``csrc/field_grid.cu``) does the rest per grid
 point without materialising the ``[R³, C]`` feature grid.
 ``field_grid_reference`` is the unfused expression, the counterpart of
-``_reference_field_grid``: on a CPU tensor ``fused_field_grid`` computes it,
-on a CUDA tensor it launches the kernel or raises.
+``_reference_field_grid``: on a CPU tensor ``fused_field_grid`` computes it
+(and autograd differentiates it), on a CUDA tensor it launches the kernel or
+raises. When a CUDA input requires grad the call goes through a
+``torch.autograd.Function`` whose backward, like the JAX package's, is no
+kernel: :func:`field_grid_slab_backward` recomputes the unfused expression on
+x-slabs of the grid, which bounds the ``[R³, 128]`` temporaries of a whole-grid
+recompute to one slab's.
 """
 
 from __future__ import annotations
@@ -25,6 +30,11 @@ LAUNCHES = 0
 
 _H = 128
 
+# x-slabs of the backward recompute (1 when it does not divide R): any count
+# gives the same gradients, since the slabs partition the grid and every
+# parameter gradient is a sum over grid points.
+BWD_SLABS = 8
+
 
 def _world(R: int, radius: float, device, dtype=torch.float32) -> torch.Tensor:
     return torch.linspace(-radius, radius, R, device=device, dtype=dtype)
@@ -35,20 +45,22 @@ def _sphere_bias(world_x: torch.Tensor, world: torch.Tensor, bias_r: float) -> t
     return torch.linalg.norm(g, dim=-1) - bias_r
 
 
-def field_grid_reference(m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d,
-                         radius: float, bias_r: float, concat: bool):
-    """The unfused expression: the grid features, both MLPs and the sphere bias.
+def _reference_slab(m_xy_s, m_xz_s, m_zy, w1s, w2s, w3s, w1d, w2d, w3d,
+                    radius: float, bias_r: float, concat: bool, world_x: torch.Tensor):
+    """The unfused expression on an x-slab of the grid.
 
-    m_xy [y, x, C], m_xz [z, x, C], m_zy [y, z, C]; weights are ``[in, out]``.
-    Returns (sdf [R, R, R], deform [3, R, R, R]) in axis order (x, y, z).
+    m_xy_s / m_xz_s ``[R, S, C]`` (x restricted to the slab), m_zy ``[R, R, C]``,
+    world_x ``[S]`` the slab's world x-coordinates. Returns (sdf [S, R, R],
+    deform [3, S, R, R]).
     """
     R = m_zy.shape[0]
-    xy = m_xy.transpose(0, 1)[:, :, None, :]  # [x, y, 1, C]
-    xz = m_xz.transpose(0, 1)[:, None, :, :]  # [x, 1, z, C]
+    S = m_xy_s.shape[1]
+    xy = m_xy_s.transpose(0, 1)[:, :, None, :]  # [S, y, 1, C]
+    xz = m_xz_s.transpose(0, 1)[:, None, :, :]  # [S, 1, z, C]
     zy = m_zy[None, :, :, :]  # [1, y, z, C]
     if concat:
         C = m_zy.shape[-1]
-        feat = torch.cat([t.expand(R, R, R, C) for t in (xy, xz, zy)], dim=-1)
+        feat = torch.cat([t.expand(S, R, R, C) for t in (xy, xz, zy)], dim=-1)
     else:
         feat = xy + xz + zy
     f = feat.reshape(-1, feat.shape[-1])
@@ -58,11 +70,53 @@ def field_grid_reference(m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d,
         h = torch.relu(h @ w2)
         return h @ w3
 
-    sdf = mlp(f, w1s, w2s, w3s)[:, 0].reshape(R, R, R)
-    deform = mlp(f, w1d, w2d, w3d).reshape(R, R, R, 3)
+    sdf = mlp(f, w1s, w2s, w3s)[:, 0].reshape(S, R, R)
+    deform = mlp(f, w1d, w2d, w3d).reshape(S, R, R, 3)
     world = _world(R, radius, m_zy.device, m_zy.dtype)
-    sdf = sdf + _sphere_bias(world, world, bias_r)
+    sdf = sdf + _sphere_bias(world_x, world, bias_r)
     return sdf, deform.permute(3, 0, 1, 2)
+
+
+def field_grid_reference(m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d,
+                         radius: float, bias_r: float, concat: bool):
+    """The unfused expression: the grid features, both MLPs and the sphere bias.
+
+    m_xy [y, x, C], m_xz [z, x, C], m_zy [y, z, C]; weights are ``[in, out]``.
+    Returns (sdf [R, R, R], deform [3, R, R, R]) in axis order (x, y, z).
+    """
+    world = _world(m_zy.shape[0], radius, m_zy.device, m_zy.dtype)
+    return _reference_slab(m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d,
+                           radius, bias_r, concat, world)
+
+
+def field_grid_slab_backward(inputs, g_sdf: torch.Tensor, g_def: torch.Tensor,
+                             radius: float, bias_r: float, concat: bool):
+    """Gradients of :func:`field_grid_reference` wrt its nine tensor inputs.
+
+    ``inputs`` are (m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d); ``g_sdf``
+    ``[R, R, R]`` and ``g_def`` ``[3, R, R, R]`` the cotangents. The unfused
+    expression is recomputed and differentiated one x-slab at a time: the
+    weight and ``m_zy`` gradients are summed over slabs, the ``m_xy`` / ``m_xz``
+    gradients of a slab land in its own columns.
+    """
+    m_xy, m_xz = inputs[0], inputs[1]
+    R = m_xy.shape[0]
+    n_slabs = BWD_SLABS if R % BWD_SLABS == 0 else 1
+    S = R // n_slabs
+    world = _world(R, radius, m_xy.device, m_xy.dtype)
+    grads = [torch.zeros_like(m_xy), torch.zeros_like(m_xz)] + [None] * 7
+    for s in range(n_slabs):
+        sl = slice(s * S, (s + 1) * S)
+        leaves = [m_xy[:, sl], m_xz[:, sl], *inputs[2:]]
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        with torch.enable_grad():
+            out = _reference_slab(*leaves, radius, bias_r, concat, world[sl])
+        d = torch.autograd.grad(out, leaves, (g_sdf[sl], g_def[:, sl]))
+        grads[0][:, sl] = d[0]
+        grads[1][:, sl] = d[1]
+        for i in range(2, 9):
+            grads[i] = d[i] if grads[i] is None else grads[i] + d[i]
+    return tuple(grads)
 
 
 def _prep(m_xy, m_xz, m_zy, w1s, w1d, w2s, w2d, w3s, w3d, concat: bool):
@@ -114,18 +168,38 @@ def _launch(a_xy, a_xz, a_zy, w2blk, w3t, radius: float, bias_r: float):
     return sdf, deform
 
 
+class _FusedFieldGrid(torch.autograd.Function):
+    """Forward: the kernel. Backward: the slab recompute of the unfused expression."""
+
+    @staticmethod
+    def forward(ctx, radius, bias_r, concat, *inputs):
+        m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d = inputs
+        ctx.save_for_backward(*inputs)
+        ctx.consts = (radius, bias_r, concat)
+        prepped = _prep(m_xy, m_xz, m_zy, w1s, w1d, w2s, w2d, w3s, w3d, concat)
+        return _launch(*prepped, radius, bias_r)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_sdf, g_def):
+        grads = field_grid_slab_backward(ctx.saved_tensors, g_sdf, g_def, *ctx.consts)
+        return (None, None, None, *grads)
+
+
 def fused_field_grid(m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d,
                      radius: float, bias_r: float, concat: bool
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SDF + deformation on the dense grid, fused.
+    """SDF + deformation on the dense grid, fused, differentiable.
 
     Same arguments and results as :func:`field_grid_reference`; all float32.
     The hidden width of both MLPs must be 64 (the kernel's H = 128).
     """
+    inputs = (m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d)
     if m_xy.device.type == "cpu":
-        return field_grid_reference(m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d,
-                                    radius, bias_r, concat)
+        return field_grid_reference(*inputs, radius, bias_r, concat)
     if m_xy.device.type != "cuda":
         raise ValueError(f"fused_field_grid runs on cuda or cpu, got {m_xy.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _FusedFieldGrid.apply(float(radius), float(bias_r), bool(concat), *inputs)
     prepped = _prep(m_xy, m_xz, m_zy, w1s, w1d, w2s, w2d, w3s, w3d, concat)
     return _launch(*prepped, radius, bias_r)

@@ -444,3 +444,39 @@ def marching_cubes(sdf: torch.Tensor, deformation: Optional[torch.Tensor] = None
         max_cells = max(max_faces // 2, 1024)
     return _extract_isosurface(sdf, deformation, isovalue, max_verts, max_faces, max_cells,
                                deform_scale, 3, MC_TRI_CODE, MC_TRI_COUNT)
+
+
+def extract_isosurface(sdf: torch.Tensor, deformation: Optional[torch.Tensor] = None,
+                       method: str = "mc", **kw) -> ExtractedMesh:
+    """Dispatch to :func:`marching_cubes` (``"mc"``, the default) or
+    :func:`marching_tets` (``"mt"``)."""
+    if method == "mc":
+        return marching_cubes(sdf, deformation, **kw)
+    if method == "mt":
+        import warnings
+
+        warnings.warn(
+            "isosurface method 'mt' emits ~2x more vertices/faces than 'mc'; the default "
+            "capacities are sized for 'mc' -- double max_verts/max_faces for 'mt' or "
+            "overflow is silently mask-dropped", stacklevel=2)
+        return marching_tets(sdf, deformation, **kw)
+    raise ValueError(f"Unknown isosurface method {method}")
+
+
+def force_field_crossing(sdf: torch.Tensor, resolution: int) -> torch.Tensor:
+    """Branchless empty-field fallback: when the field has no sign change, push
+    a centre cube below zero and the border above it. ``sdf`` holds R³ values in
+    any shape; gradients flow as in the JAX version (through ``max`` / ``min``
+    when the fallback applies)."""
+    R = resolution
+    flat = sdf.reshape(-1)
+    has_crossing = (flat > 0).any() & (flat < 0).any()
+    ar = torch.arange(R, device=sdf.device)
+    ijk = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), dim=-1).reshape(-1, 3)
+    c = (R - 1) / 2.0
+    dist2center = (ijk - c).abs().amax(dim=-1)
+    center_mask = dist2center <= (R // 8)
+    border_mask = (ijk.amin(dim=-1) == 0) | (ijk.amax(dim=-1) == R - 1)
+    update = (center_mask.to(flat.dtype) * (-1.0 - flat.max())
+              + border_mask.to(flat.dtype) * (1.0 - flat.min()))
+    return torch.where(has_crossing, flat, flat + update).reshape(sdf.shape)

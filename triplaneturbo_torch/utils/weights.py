@@ -9,6 +9,10 @@ one torch parameter by its last name alone:
 * norm ``scale`` -> ``weight``; ``Embed.embedding`` -> ``weight``;
 * everything else (``bias``, the LoRA ``down`` / ``up``, plane-stacked or
   not, ``position_embedding``) keeps its name and layout.
+
+The same mapping carries any tree shaped like the parameters (gradients,
+optimizer moments) across, in either direction: :func:`flax_tree_to_named`,
+:func:`named_to_flax_tree`, :func:`load_adan_state`.
 """
 
 from __future__ import annotations
@@ -48,6 +52,57 @@ def _torch_leaf(path: str, arr: np.ndarray):
     return ".".join(mods + [name]), np.ascontiguousarray(arr)
 
 
+def flax_tree_to_named(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A flax-shaped tree (parameters, gradients, moments) as a dict from the
+    port's parameter names to arrays in the port's layout."""
+    return dict(_torch_leaf(p, a) for p, a in _flatten(tree).items())
+
+
+def named_to_flax_tree(named: Mapping[str, Any], like: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reverse: arrays keyed by the port's parameter names, laid out as the
+    flax tree ``like`` (whose leaves give the paths; their values are not read).
+    Names that ``like`` does not hold are left out; a missing one raises."""
+    out: Dict[str, Any] = {}
+    for path, leaf in _flatten(like).items():
+        name, _ = _torch_leaf(path, np.empty((0,) * leaf.ndim))
+        arr = named[name]
+        arr = arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+        if path.rsplit("/", 1)[-1] == "kernel":
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+        node = out
+        *mods, last = path.split("/")
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[last] = np.ascontiguousarray(arr)
+    return out
+
+
+@torch.no_grad()
+def load_adan_state(optimizer, names, count: int, m: Mapping[str, Any], v: Mapping[str, Any],
+                    n: Mapping[str, Any], prev_grad: Mapping[str, Any]) -> None:
+    """Carry an Adan state of the JAX package into the port's optimizer.
+
+    ``optimizer`` is an ``Adan`` or a ``GuardedAdan`` whose parameters are, in
+    order, the ones called ``names``; ``m``, ``v``, ``n`` and ``prev_grad`` are
+    flax-shaped trees of numpy arrays over (at least) those parameters, and
+    ``count`` the number of steps taken.
+    """
+    adan = getattr(optimizer, "adan", optimizer)
+    params = [p for group in adan.param_groups for p in group["params"]]
+    names = list(names)
+    if len(names) != len(params):
+        raise ValueError(f"{len(names)} names for {len(params)} parameters")
+    moments = {key: flax_tree_to_named(tree)
+               for key, tree in (("m", m), ("v", v), ("n", n), ("prev_grad", prev_grad))}
+    adan.count = int(count)
+    for name, p in zip(names, params):
+        for key, named in moments.items():
+            arr = named[name]
+            if tuple(p.shape) != arr.shape:
+                raise ValueError(f"{key} of {name}: parameter {tuple(p.shape)} vs state {arr.shape}")
+            adan.state[p][key] = torch.tensor(arr, device=p.device, dtype=p.dtype)
+
+
 @torch.no_grad()
 def load_flax_params(module: nn.Module, tree: Mapping[str, Any]) -> None:
     """Fill ``module``'s parameters from a flax parameter tree of numpy arrays.
@@ -56,7 +111,7 @@ def load_flax_params(module: nn.Module, tree: Mapping[str, Any]) -> None:
     parameter, an unused leaf or a shape mismatch.
     """
     params = dict(module.named_parameters())
-    mapped = dict(_torch_leaf(p, a) for p, a in _flatten(tree).items())
+    mapped = flax_tree_to_named(tree)
     missing = sorted(set(params) - set(mapped))
     unused = sorted(set(mapped) - set(params))
     if missing or unused:
