@@ -7,20 +7,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device   -- ``nvidia-smi`` name and power limit, the torch device name and count;
                exits 2 when CUDA is unavailable.
 2. build    -- builds every kernel from ``triplaneturbo_torch/csrc`` with nvcc and
-               prints each one's ``-Xptxas -v`` lines.
+               prints each one's ``-Xptxas -v`` lines; where the toolkit has
+               ``cuobjdump``, counts in the forward's SASS the tensor-core (HGMMA),
+               exp, async-copy and shared-store instructions of each kernel and
+               requires HGMMA and no shared-memory store in the bf16 ones.
 3. kernels  -- holds each kernel against its plain PyTorch version at every shape its
                main path gives it, and times kernel, plain version and the library
                call: the flash forward at the serving shapes (one prompt) and the
                field grid at R=160; the flash forward with stats, the dq and the
                dk/dv kernels at the training shapes (two prompts), in bf16 at all six
                sites and in f32 at the joint and VAE sites, plus ragged lengths
-               (700/700, 300/1200); the field-grid slab backward against autograd of
-               the plain field at R=160 (v1) and R=40 (v2).
+               (700/700, 300/1200); both forms of the forward at the edges of its
+               tensor-core tiling (one row or key below and above a tile, one key,
+               one batch-head, Lk = 77, q scaled by 8; bf16 and f32), where they
+               must also agree with each other and from run to run bit for bit;
+               the field-grid slab backward against autograd of the plain field at
+               R=160 (v1) and R=40 (v2). Times are CUDA-event means of calls
+               through the wrapper, queued behind a spin kernel that outlasts the
+               host's enqueueing, so that a kernel shorter than its wrapper's host
+               time is still timed on the device.
                Tolerances: f32 1e-4 absolute (sums run in another order than the
                plain version's); bf16 1e-2 of the largest reference value at the
                site, for each output (a bf16 result's own rounding is at most 2^-9
-               of it, and the backward also takes delta from the bf16-rounded
-               forward output); field grid 1e-4 absolute, its backward
+               of it, the tensor-core forward rounds P to bf16 before P V, and the
+               backward also takes delta from the bf16-rounded forward output);
+               the logsumexp 1e-4 absolute in both types; field grid 1e-4 absolute, its backward
                1e-4 of the largest reference gradient of each input.
 4. reference -- a small model (head dim 64, so every attention and the field grid
                take the kernels) on the card against the same weights on the CPU
@@ -85,6 +96,20 @@ TRAIN_PROMPTS = 2
 TRAIN_ATTN_SHAPES = [(site, BH * TRAIN_PROMPTS, L, Lk, D, n // 4 if D == 64 else 1)
                      for site, BH, L, Lk, D, n in ATTN_SHAPES]
 RAGGED_SHAPES = [("ragged 700/700", 2, 700, 700, 64, 0), ("ragged 300/1200", 2, 300, 1200, 64, 0)]
+# Edges of the tensor-core forward's tiling (64 query rows a warpgroup, 64 or 128 a CTA;
+# 128 keys a tile at D = 64, 64 at D = 512): (site, BH, L, Lk, D, scale of q).
+EDGE_SHAPES = [("cross 256/77", 2, 256, 77, 64, 1.0), ("one key 130/1", 2, 130, 1, 64, 1.0),
+               ("one batch-head 128/128", 1, 128, 128, 64, 1.0),
+               ("below the tiles 63/127", 2, 63, 127, 64, 1.0),
+               ("above the tiles 65/129", 2, 65, 129, 64, 1.0),
+               ("below the tiles 127/255", 3, 127, 255, 64, 1.0),
+               ("above the tiles 129/257", 3, 129, 257, 64, 1.0),
+               ("128-row CTAs 129/129", 70, 129, 129, 64, 1.0),
+               ("128-row CTAs 520/77", 34, 520, 77, 64, 1.0),
+               ("q times 8 700/700", 2, 700, 700, 64, 8.0),
+               ("D=512 below the tiles 63/63", 1, 63, 63, 512, 1.0),
+               ("D=512 above the tiles 65/65", 2, 65, 65, 512, 1.0),
+               ("D=512 64/129", 1, 64, 129, 512, 1.0)]
 FLASH_PER_PASS = sum(s[-1] for s in TRAIN_ATTN_SHAPES)  # 26: one UNet pass and one VAE decode
 # absolute, except flash attention in bf16: a fraction of max |reference|
 TOL = {("flash_attn_fwd", "float32"): 1e-4, ("flash_attn_fwd", "bfloat16"): 1e-2,
@@ -111,13 +136,23 @@ def check(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` from CUDA events over ``iters`` calls."""
+    """Mean device time of ``fn()`` from CUDA events over ``iters`` calls.
+
+    The calls are queued behind a spin kernel that outlasts the host's enqueueing of
+    them, so the events bracket back-to-back device work even where one call's host
+    time (wrapper, allocator, launch) is longer than its kernel."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # cycles at 2 GHz, more than the card's clock: twice the expected enqueue time, at most 0.25 s
+    torch.cuda._sleep(int(min(2.0 * enqueue_s * iters, 0.25) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -150,18 +185,57 @@ def phase_device():
     return info
 
 
+def sass_census(library: Path):
+    """Per kernel of one built library, from ``cuobjdump -sass``: how many tensor-core
+    (HGMMA, the SASS of ``wgmma``), exponential (MUFU.EX2), asynchronous-copy (LDGSTS) and
+    plain shared-memory store (STS) instructions it holds, and its first HGMMA line.
+    None where the toolkit has no ``cuobjdump``."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    census, cur = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            cur = census.setdefault(ln.split("Function :")[1].strip(),
+                                    {"HGMMA": 0, "MUFU.EX2": 0, "LDGSTS": 0, "STS": 0,
+                                     "first_hgmma": None})
+            continue
+        if cur is None:
+            continue
+        for op in ("HGMMA", "MUFU.EX2", "LDGSTS", "STS"):
+            if f" {op}" in ln and (op != "STS" or "LDGSTS" not in ln):
+                cur[op] += 1
+                if op == "HGMMA" and cur["first_hgmma"] is None:
+                    cur["first_hgmma"] = " ".join(ln.split("*/")[-2 if ln.count("*/") > 1 else -1]
+                                                   .split(";")[0].split())
+    return census
+
+
 def phase_build():
     from triplaneturbo_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build_all()
+    libraries = _build.build_all()
     seconds = time.perf_counter() - t0
     report = {}
     for name in _build.sources():
         lines = [ln.strip() for ln in _build.ptxas_report(name).splitlines()
                  if "ptxas info" in ln and ("Used" in ln or "spill" in ln or "Compiling" in ln)]
         report[name] = lines
-    emit({"phase": "build", "seconds": seconds, "ptxas": report})
+    # the bf16 forward runs both products on the tensor cores and keeps no score tile in
+    # shared memory: its kernels hold HGMMA and not one plain shared-memory store
+    sass = sass_census(libraries["flash_attn_fwd"])
+    if sass is not None:
+        wgmma = {k: v for k, v in sass.items() if "flash_fwd_kernel_wgmma" in k}
+        check(len(wgmma) >= 3, f"expected the tensor-core forward kernels in the SASS: {list(sass)}")
+        for k, v in wgmma.items():
+            check(v["HGMMA"] > 0 and v["STS"] == 0 and v["LDGSTS"] > 0 and v["MUFU.EX2"] > 0,
+                  f"{k}: SASS census {v}")
+    emit({"phase": "build", "seconds": seconds, "ptxas": report, "sass_flash_attn_fwd": sass})
 
 
 def attention_case(site, BH, L, Lk, D, dtype_name, gen):
@@ -323,6 +397,41 @@ def training_attention_case(site, BH, L, Lk, D, dtype_name, gen):
     return rows
 
 
+def forward_edge_case(site, BH, L, Lk, D, q_scale, dtype_name, gen):
+    """Both forms of the forward at an edge of the tiling: against the plain version,
+    against each other and from run to run (bit for bit). No timing."""
+    import torch
+    from triplaneturbo_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dtype_name)
+    q = (torch.randn(BH, L, D, device="cuda", generator=gen) * q_scale).to(dtype)
+    k, v = (torch.randn(BH, Lk, D, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    out = fa.flash_attention(q, k, v)
+    out_s, lse = fa._launch(q, k, v, return_stats=True)
+    again, lse_again = fa._launch(q, k, v, return_stats=True)
+    torch.cuda.synchronize()
+    ref, lse_ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), return_stats=True)
+    name = f"{site} {dtype_name}"
+    check(torch.equal(out, out_s), f"forward edge {name}: the two forms give different outputs")
+    check(torch.equal(out_s, again) and torch.equal(lse, lse_again),
+          f"forward edge {name}: two runs differ")
+    err = (out.float() - ref).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    tol = TOL[("flash_attn_fwd", dtype_name)] * (ref_max if dtype_name == "bfloat16" else 1.0)
+    lse_tol = TOL[("flash_attn_fwd_stats", "float32")]
+    check(math.isfinite(err) and math.isfinite(lse_err), f"forward edge {name}: non-finite output")
+    check(err <= tol, f"forward edge {name}: max abs err {err} > {tol}")
+    check(lse_err <= lse_tol, f"forward edge {name}: lse max abs err {lse_err} > {lse_tol}")
+    rows = []
+    for kernel, e in (("flash_attn_fwd", err), ("flash_attn_fwd_stats", max(err, lse_err))):
+        rows.append({"phase": "kernel_edge_case", "kernel": kernel, "site": site,
+                     "dtype": dtype_name, "BH": BH, "L": L, "Lk": Lk, "D": D, "q_scale": q_scale,
+                     "max_abs_err": e, "tol": tol, "lse_err": lse_err, "ref_max_abs": ref_max})
+    emit(rows[1])
+    return rows
+
+
 def field_grid_backward_case(R, C, concat, gen):
     """The slab backward of the field grid (plain PyTorch, as the JAX package's is
     XLA) behind the kernel's autograd function, against autograd of the plain field."""
@@ -385,6 +494,9 @@ def phase_kernels():
         if "joint 6 planes" in site and L == 6144 or D == 512 or site.startswith("ragged"):
             rows += training_attention_case(site, BH, L, Lk, D, "float32", gen)
         torch.cuda.empty_cache()
+    for site, BH, L, Lk, D, q_scale in EDGE_SHAPES:
+        for dtype_name in ("bfloat16", "float32"):
+            rows += forward_edge_case(site, BH, L, Lk, D, q_scale, dtype_name, gen)
     rows.append(field_grid_backward_case(160, 32, False, gen))
     rows.append(field_grid_backward_case(40, 32, True, gen))
     torch.cuda.empty_cache()

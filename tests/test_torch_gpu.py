@@ -34,9 +34,18 @@ def _randn(gen, *shape, dtype=torch.float32, scale=1.0):
     return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
+# Edges of the tensor-core forward's tiling: 64 query rows a warpgroup, 64 or 128 a CTA;
+# 128 keys a tile at D = 64 and 64 at D = 512; one key; one batch-head. The 128-row CTA is
+# taken when it gives more CTAs than the card has SMs (the last two D = 64 cases on an H100).
+EDGE_CASES = [(2, 256, 77, 64), (2, 130, 1, 64), (1, 128, 128, 64), (2, 63, 127, 64),
+              (2, 65, 129, 64), (3, 127, 255, 64), (3, 129, 257, 64), (40, 129, 64, 64),
+              (70, 129, 129, 64), (34, 520, 77, 64),
+              (1, 63, 63, 512), (2, 65, 65, 512), (1, 64, 129, 512)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("BH,L,Lk,D", [(3, 256, 256, 64), (2, 700, 700, 64), (4, 300, 77, 64),
-                                       (2, 1, 5, 64), (2, 200, 130, 512)])
+                                       (2, 1, 5, 64), (2, 200, 130, 512)] + EDGE_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, dtype, BH, L, Lk, D):
     gen = torch.Generator(device="cuda").manual_seed(L * 7 + Lk)
     q, k, v = (_randn(gen, BH, n, D, dtype=dtype) for n in (L, Lk, Lk))
@@ -56,7 +65,7 @@ BWD_CASES = [(3, 256, 256, 64), (2, 700, 700, 64), (2, 300, 1200, 64), (4, 300, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("BH,L,Lk,D", BWD_CASES)
+@pytest.mark.parametrize("BH,L,Lk,D", BWD_CASES + EDGE_CASES)
 def test_flash_stats_forward_matches_plain(cuda, dtype, BH, L, Lk, D):
     gen = torch.Generator(device="cuda").manual_seed(L * 7 + Lk)
     q, k, v = (_randn(gen, BH, n, D, dtype=dtype) for n in (L, Lk, Lk))
@@ -100,6 +109,63 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, BH, L, Lk, D):
         tol = 1e-4 if dtype == torch.float32 else 1e-2 * ref.abs().max().item()
         err = (got.float() - ref).abs().max().item()
         assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_holds_large_scores(cuda, dtype):
+    """q scaled by 8: scores of std 8, so nearly one-hot rows and a wide range of exponents."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = _randn(gen, 2, 700, 64, dtype=dtype, scale=8.0)
+    k, v = _randn(gen, 2, 700, 64, dtype=dtype), _randn(gen, 2, 700, 64, dtype=dtype)
+    out, lse = fa._launch(q, k, v, return_stats=True)
+    ref, lse_ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), return_stats=True)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2 * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("BH,L,Lk,D", [(2, 700, 700, 64), (2, 300, 1200, 64), (4, 256, 77, 64),
+                                       (2, 200, 130, 512)])
+def test_flash_forward_kernel_matches_its_tiled_emulation(cuda, BH, L, Lk, D):
+    """bf16: the kernel and its plain tile-by-tile emulation differ only in the order of
+    the f32 sums, so each output is at most one bf16 step (up to 2^-7 of its value) apart."""
+    gen = torch.Generator(device="cuda").manual_seed(L + Lk)
+    q, k, v = (_randn(gen, BH, n, D, dtype=torch.bfloat16) for n in (L, Lk, Lk))
+    out, lse = fa._launch(q, k, v, return_stats=True)
+    emu, lse_emu = fa.flash_attention_tiled_reference(q, k, v, return_stats=True)
+    assert (out.float() - emu.float()).abs().max().item() <= 2 ** -7 * emu.float().abs().max().item()
+    assert (lse - lse_emu).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("BH,L,Lk,D", [(4, 700, 333, 64), (70, 200, 300, 64), (2, 200, 130, 512)])
+def test_flash_forward_is_the_same_from_run_to_run(cuda, BH, L, Lk, D):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (_randn(gen, BH, n, D, dtype=torch.bfloat16) for n in (L, Lk, Lk))
+    o1, lse1 = fa._launch(q, k, v, return_stats=True)
+    o2, lse2 = fa._launch(q, k, v, return_stats=True)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    assert torch.equal(o1, fa._launch(q, k, v))
+
+
+def test_flash_function_gradients_match_plain_backward_bf16_ragged(cuda):
+    """The whole autograd function at 700/700 in bf16: the tensor-core forward's lse feeds
+    the backward kernels, which recompute P = exp(s * scale - lse). An lse left in base 2
+    passes every check of ``o`` and fails here."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (_randn(gen, 2, 700, 64, dtype=torch.bfloat16).requires_grad_() for _ in range(3))
+    g = _randn(gen, 2, 700, 64, dtype=torch.bfloat16)
+    out = fa._FlashAttention.apply(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    o_ref, lse_ref = fa.flash_attention_reference(qf, kf, vf, return_stats=True)
+    auto = torch.autograd.grad(o_ref, (qf, kf, vf), g.float())
+    plain = fa.flash_attention_bwd_reference(qf.detach(), kf.detach(), vf.detach(), o_ref.detach(),
+                                             lse_ref.detach(), g.float())
+    for name, got, a, b in zip(("dq", "dk", "dv"), grads, auto, plain):
+        # the plain backward is autograd's, to f32 rounding
+        assert (a - b).abs().max().item() <= 1e-4, name
+        tol = 1e-2 * a.abs().max().item()
+        assert (got.float() - a).abs().max().item() <= tol, name
 
 
 def test_flash_backward_is_the_same_from_run_to_run(cuda):

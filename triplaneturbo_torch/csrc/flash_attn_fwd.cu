@@ -6,53 +6,552 @@
 // 1/sqrt(D), keys at or past Lk score -1e30, running max and normalizer in
 // f32, output = acc / max(l, 1e-30) cast to the input type. The stats form
 // (entry point `flash_attn_fwd_stats`) also writes the per-row logsumexp
-// lse = m + log(max(l, 1e-30)) in f32, which the backward kernels of
-// flash_attn_bwd.cu read; the plain form passes no lse pointer and writes none.
+// lse = m + log(max(l, 1e-30)) in f32 and in natural log, which the backward
+// kernels of flash_attn_bwd.cu read; the plain form passes no lse pointer and
+// writes none.
 //
 // What bounds it on an H100: at the joint self-attention shapes (L = 6144,
 // D = 64) the work is ~4 L^2 D FLOPs against ~4 L D bytes of operands, far
-// above the card's ridge point, so it is bound by arithmetic; the cross
-// attention (Lk = 77) is bound by the bytes of Q and O.
+// above the card's ridge point, so it is bound by arithmetic: the tensor
+// cores' bf16 rate and, at D = 64, as much the rate of exp (one per score
+// against 2 D multiply-adds). The cross attention (Lk = 77) is bound by the
+// bytes of Q and O and costs little more than its launch.
 //
-// What this design does about it: the score matrix never leaves the SM. One
-// CTA owns a tile of BQ query rows of one (batch, head) and loops over K/V
-// tiles of BK keys staged in shared memory -- the loop takes the place of the
-// TPU's sequential grid axis. Q K^T and P V are register-tiled FMA products
-// from shared memory in f32 (each thread owns an SR x SC tile of S and an
-// OR x OC tile of O), which keeps the f32 accumulation of the TPU kernel for
-// both bf16 and f32 inputs. Tensor cores (mma / wgmma) are left to a later
-// change: they are where the remaining arithmetic rate is.
+// What the bf16 design does about it (`flash_fwd_kernel_wgmma_d64`,
+// `flash_fwd_kernel_wgmma_d512`):
+//  * Both products run on the tensor cores through `wgmma.mma_async`
+//    (m64nNk16, bf16 x bf16 -> f32 accumulators in registers). One warpgroup
+//    owns 64 query rows. Q, K and V stay bf16 in shared memory as tiles of
+//    128-byte rows in the 128-byte swizzle (a 64-wide bf16 row is one swizzle
+//    atom; D = 512 is eight such column blocks). S = Q K^T reads K as a
+//    K-major B operand; O += P V reads the V tile [keys, D] as an MN-major B
+//    operand (the instruction's transpose flag).
+//  * S and P never leave registers. The online softmax runs on the
+//    accumulator fragment: each thread holds two rows, the row max is reduced
+//    over the four lanes that share a row, the running max and normalizer
+//    stay in registers (the normalizer as a per-lane partial sum, reduced once
+//    at the end), O is rescaled in registers, and P, rounded to bf16, is the
+//    register A operand of the second product: the accumulator layout of the
+//    first product is the A-fragment layout of the second once neighbouring
+//    pairs are packed. The normalizer sums the f32 exponentials, not the
+//    rounded P.
+//  * scale * log2(e) is folded into one multiply-add and the exponential is
+//    one `ex2.approx` instruction; the running max is kept in base 2 and lse converted back with
+//    lse = m * ln2 + log(l).
+//  * K/V tiles go through a two-stage ring filled by 16-byte `cp.async`
+//    (rows at or past Lk, and Q rows past L, are zero-filled): the loads of
+//    tile t+1 are in flight while tile t is multiplied, with one barrier a
+//    tile. Masking is as before: keys past Lk are set to -1e30 before the row
+//    max, rows past L are never written.
+//  * Tiling at D = 64, chosen by measurement: 128 keys a tile and two
+//    warpgroups (128 query rows) a CTA at 128 registers a thread, so that two
+//    CTAs, four warpgroups, share an SM and one warpgroup's softmax runs under
+//    the others' products. Where 128-row tiles would give fewer CTAs than the
+//    card has SMs, a CTA is one warpgroup (64 rows).
+//  * D = 512 (the VAE mid-block) keeps a 64 x 512 f32 O tile, 256 registers a
+//    thread for one warpgroup, so two warpgroups share the 64 query rows and
+//    each owns 256 of O's columns. Each computes the whole S tile for itself
+//    (Q K^T walked over D in 32 steps of 16), so that no score tile is
+//    exchanged through shared memory. Q, K and V tiles of 64 rows are 64 KB
+//    each, single-buffered; the K tile of t+1 loads under the softmax and P V
+//    of t, the V tile of t+1 under Q K^T of t+1.
 //
-// D = 64 uses 64 x 64 tiles (~69 KB of shared memory, 3 CTAs per SM); D = 512
-// (the VAE mid-block attention) uses 32 x 32 tiles (~203 KB, dynamic shared
-// memory raised with cudaFuncSetAttribute), since the TPU's 256 x 1024 blocks
-// do not fit the 227 KB a Hopper CTA may use.
+// f32 inputs keep the register-tiled FMA body (`flash_fwd_kernel_f32`): they
+// are held to 1e-4 absolute, which TF32 tensor cores would break, and only the
+// small-model comparisons and the f32 kernel cases reach it. It uses 64 x 64
+// tiles at D = 64 (~69 KB of shared memory) and 32 x 32 at D = 512 (~203 KB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+// Tiling of the D = 64 tensor-core kernel: warpgroups (64 query rows each) a
+// CTA, keys a tile, CTAs an SM the register budget is set for; and the
+// warpgroups a CTA where 128-row tiles would leave SMs without a CTA. Chosen by
+// measurement on an H100 (triplaneturbo_torch/tools/tune_flash_fwd.py builds
+// this file with other values).
+#ifndef FLASH_D64_NWG
+#define FLASH_D64_NWG 2
+#endif
+#ifndef FLASH_D64_BK
+#define FLASH_D64_BK 128
+#endif
+#ifndef FLASH_D64_MIN_CTAS
+#define FLASH_D64_MIN_CTAS 2
+#endif
+#ifndef FLASH_D64_SMALL_GRID_NWG
+#define FLASH_D64_SMALL_GRID_NWG 1
+#endif
+
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernels
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy to shared memory; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Makes this thread's landed copies visible to wgmma, which reads shared
+// memory through the async proxy.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Stage rows [row0, row0 + ROWS) x columns [col0, col0 + 64) of a row-major
+// bf16 matrix [nrows, ld] as a tile of 128-byte rows in the 128-byte swizzle:
+// the 16-byte chunk c of row r lands at chunk c ^ (r % 8). `dst` is 1024-byte
+// aligned. Rows at or past nrows are zero-filled.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* __restrict__ src, int ld,
+                                          int row0, int nrows, int col0, int tid) {
+  static_assert((ROWS * 8) % THREADS == 0, "tile rows must divide over the threads");
+#pragma unroll
+  for (int i = 0; i < ROWS * 8 / THREADS; ++i) {
+    const int idx = tid + i * THREADS;
+    const int r = idx >> 3, c = idx & 7;
+    const int gr = row0 + r;
+    const bool ok = gr < nrows;
+    const bf16* p = src + (size_t)(ok ? gr : 0) * ld + col0 + c * 8;
+    cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4), p, ok ? 16 : 0);
+  }
+}
+
+// wgmma shared-memory descriptor of such a tile: start address, 8-row groups
+// 1024 bytes apart (stride byte offset), 128-byte swizzle. The leading byte
+// offset is not used by a tile one swizzle atom (64 bf16) wide. It serves the
+// K-major operands (Q and K: rows are the M/N index, the 128-byte row holds
+// the reduction index) and the MN-major one (V: rows are the reduction index).
+__device__ __forceinline__ uint64_t tile_desc(uint32_t smem_addr) {
+  uint64_t d = (uint64_t)((smem_addr & 0x3FFFFu) >> 4);
+  d |= (uint64_t)1 << 16;
+  d |= (uint64_t)(1024 >> 4) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+// Descriptor steps: 16 reduction elements along a K-major row are 32 bytes;
+// 16 reduction rows of an MN-major tile are 2048 bytes (both in 16-byte units).
+constexpr uint64_t kStepKMajor = 32 >> 4;
+constexpr uint64_t kStepMNMajor = 2048 >> 4;
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving uses of accumulator registers across the
+// point where the asynchronous products have been waited for.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define REGS_32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "         \
+  " %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  " %16, %17, %18, %19, %20, %21, %22, %23, " \
+  " %24, %25, %26, %27, %28, %29, %30, %31} "
+#define REGS_64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "         \
+  " %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  " %16, %17, %18, %19, %20, %21, %22, %23, " \
+  " %24, %25, %26, %27, %28, %29, %30, %31, " \
+  " %32, %33, %34, %35, %36, %37, %38, %39, " \
+  " %40, %41, %42, %43, %44, %45, %46, %47, " \
+  " %48, %49, %50, %51, %52, %53, %54, %55, " \
+  " %56, %57, %58, %59, %60, %61, %62, %63} "
+#define ACC_8(d, o)                                                                 \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), \
+      "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define ACC_32(d, o) ACC_8(d, o), ACC_8(d, o + 8), ACC_8(d, o + 16), ACC_8(d, o + 24)
+
+// d (64 x 64, f32) = or += A (64 x 16, K-major in shared memory) x B^T (64 x 16, K-major).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS_32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC_32(d, 0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+// The same with a 128-wide B: d is 64 x 128.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS_64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC_32(d, 0), ACC_32(d, 32)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+// d (64 x 64, f32) += A (64 x 16 bf16, in registers) x B (16 x 64, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS_32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC_32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// 2^x in one instruction (exp2f adds a range fix-up around it; a result below
+// the normal range may flush to zero here, which the softmax does not mind).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Where a thread's accumulator registers sit in the 64-row tile of its
+// warpgroup: register i of a 64 x N accumulator is row
+// 16 * warp + lane / 4 + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (lane % 4) + i % 2.
+// So a thread holds two rows ("halves" h = 0, 1), each shared by four lanes.
+
+// Online softmax of one key tile on the accumulator fragment `s` of S (raw
+// scores of keys k0 .. k0 + BK). c = scale * log2(e). Updates the running max
+// m (base 2) and this lane's part l of the normalizer, returns the rescale
+// factors of the two rows and P packed as the bf16 A fragments of P V.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], uint32_t (&p)[BK / 4],
+                                             float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                             int k0, int lk, int lane4, float c) {
+  if (k0 + BK > lk) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int col = k0 + (i >> 2) * 8 + lane4 * 2 + (i & 1);
+      if (col >= lk) s[i] = kNegInf;
+    }
+  }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    // every tile holds at least one key below lk, so mx is a real score
+    const float m_new = fmaxf(m[h], mx[h] * c);
+    alpha[h] = fast_exp2(m[h] - m_new);
+    m[h] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const float e = fast_exp2(fmaf(s[i], c, -m[(i >> 1) & 1]));
+    sum[(i >> 1) & 1] += e;
+    s[i] = e;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+#pragma unroll
+  for (int i = 0; i < BK / 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+// The normalizer of a row from its four lanes' parts; the logsumexp in natural log.
+__device__ __forceinline__ float row_sum(float l) {
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  return fmaxf(l, 1e-30f);
+}
+
+// Store one 64-wide block of a thread's O fragment, normalized, as bf16.
+__device__ __forceinline__ void store_o_block(bf16* __restrict__ ob, int ld, const float (&acc)[32],
+                                              const int (&row)[2], const float (&inv)[2], int lq,
+                                              int col0, int lane4) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= lq) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const __nv_bfloat162 v =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv[h], acc[4 * j + 2 * h + 1] * inv[h]);
+      *reinterpret_cast<__nv_bfloat162*>(&ob[(size_t)row[h] * ld + col0 + 8 * j + 2 * lane4]) = v;
+    }
+  }
+}
+
+// D = 64. NWG warpgroups a CTA, each with 64 query rows; BK keys a tile; K/V in a two-stage ring.
+template <int NWG, int BK, int MIN_CTAS>
+__global__ void __launch_bounds__(NWG * 128, MIN_CTAS)
+flash_fwd_kernel_wgmma_d64(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                           float* __restrict__ lse, int lq, int lk, float c) {
+  constexpr int D = 64, BQ = NWG * 64, THREADS = NWG * 128;
+  constexpr uint32_t KV_BYTES = BK * 128;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + BQ * 128;
+  const uint32_t sV = sK + 2 * KV_BYTES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int lane4 = lane & 3;
+  const int q0 = blockIdx.x * BQ;
+  const size_t bh = blockIdx.y;
+  const bf16* qb = q + bh * (size_t)lq * D;
+  const bf16* kb = k + bh * (size_t)lk * D;
+  const bf16* vb = v + bh * (size_t)lk * D;
+
+  load_tile<BQ, THREADS>(sQ, qb, D, q0, lq, 0, tid);
+  load_tile<BK, THREADS>(sK, kb, D, 0, lk, 0, tid);
+  load_tile<BK, THREADS>(sV, vb, D, 0, lk, 0, tid);
+  cp_async_commit();
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const uint64_t dQ = tile_desc(sQ + wg * 64 * 128);
+
+  const int n_kv = (lk + BK - 1) / BK;
+  for (int t = 0; t < n_kv; ++t) {
+    // tile t has landed for every thread, and every warp is done with tile t-1
+    cp_async_wait<0>();
+    fence_async_proxy();
+    __syncthreads();
+    if (t + 1 < n_kv) {
+      const uint32_t stage = ((t + 1) & 1) * KV_BYTES;
+      load_tile<BK, THREADS>(sK + stage, kb, D, (t + 1) * BK, lk, 0, tid);
+      load_tile<BK, THREADS>(sV + stage, vb, D, (t + 1) * BK, lk, 0, tid);
+      cp_async_commit();
+    }
+    const uint64_t dK = tile_desc(sK + (t & 1) * KV_BYTES);
+    const uint64_t dV = tile_desc(sV + (t & 1) * KV_BYTES);
+
+    float s[BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, dQ + kk * kStepKMajor, dK + kk * kStepKMajor, kk > 0);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+
+    uint32_t p[BK / 4];
+    float alpha[2];
+    softmax_tile<BK>(s, p, m, l, alpha, t * BK, lk, lane4, c);
+    // most tiles move no row's max once a few have been seen
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) wgmma_rs(acc, &p[4 * kc], dV + kc * kStepMNMajor);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+  }
+
+  const int r0 = q0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int row[2] = {r0, r0 + 8};
+  const float lsum[2] = {row_sum(l[0]), row_sum(l[1])};
+  const float inv[2] = {1.f / lsum[0], 1.f / lsum[1]};
+  store_o_block(o + bh * (size_t)lq * D, D, acc, row, inv, lq, 0, lane4);
+  if (lse != nullptr && lane4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < lq) lse[bh * (size_t)lq + row[h]] = m[h] * kLn2 + logf(lsum[h]);
+  }
+}
+
+// D = 512. One CTA of two warpgroups owns 64 query rows; both compute the whole
+// S tile (64 keys) and the softmax, warpgroup w accumulates columns
+// [256 w, 256 w + 256) of O as four 64-wide blocks. Q, K, V tiles are eight
+// [64, 64] column blocks each, single-buffered.
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_kernel_wgmma_d512(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, bf16* __restrict__ o,
+                            float* __restrict__ lse, int lq, int lk, float c) {
+  constexpr int D = 512, BQ = 64, BK = 64, THREADS = 256;
+  constexpr uint32_t BLOCK_BYTES = 64 * 128;  // one [64, 64] column block
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + 8 * BLOCK_BYTES;
+  const uint32_t sV = sK + 8 * BLOCK_BYTES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int lane4 = lane & 3;
+  const int q0 = blockIdx.x * BQ;
+  const size_t bh = blockIdx.y;
+  const bf16* qb = q + bh * (size_t)lq * D;
+  const bf16* kb = k + bh * (size_t)lk * D;
+  const bf16* vb = v + bh * (size_t)lk * D;
+
+  // cp.async groups in order: {Q, K0}, {V0}, then {K(t+1)}, {V(t+1)} in every
+  // iteration (empty past the last tile), so that "all but the newest group"
+  // is what each wait below needs.
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    load_tile<BQ, THREADS>(sQ + j * BLOCK_BYTES, qb, D, q0, lq, 64 * j, tid);
+    load_tile<BK, THREADS>(sK + j * BLOCK_BYTES, kb, D, 0, lk, 64 * j, tid);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) load_tile<BK, THREADS>(sV + j * BLOCK_BYTES, vb, D, 0, lk, 64 * j, tid);
+  cp_async_commit();
+
+  float acc[4][32];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  const int n_kv = (lk + BK - 1) / BK;
+  for (int t = 0; t < n_kv; ++t) {
+    const bool more = t + 1 < n_kv;
+    // K(t) (and Q) landed; V(t) may still be in flight
+    cp_async_wait<1>();
+    fence_async_proxy();
+    __syncthreads();
+    float s[BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * BLOCK_BYTES;
+      wgmma_ss(s, tile_desc(sQ + off) + (kk & 3) * kStepKMajor,
+               tile_desc(sK + off) + (kk & 3) * kStepKMajor, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    __syncthreads();  // both warpgroups are done with K(t)
+    if (more) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        load_tile<BK, THREADS>(sK + j * BLOCK_BYTES, kb, D, (t + 1) * BK, lk, 64 * j, tid);
+    }
+    cp_async_commit();
+
+    uint32_t p[BK / 4];
+    float alpha[2];
+    softmax_tile<BK>(s, p, m, l, alpha, t * BK, lk, lane4, c);
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[j][i] *= alpha[(i >> 1) & 1];
+    }
+
+    // V(t) landed; K(t+1) may still be in flight
+    cp_async_wait<1>();
+    fence_async_proxy();
+    __syncthreads();
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_rs(acc[j], &p[4 * kc],
+                 tile_desc(sV + (wg * 4 + j) * BLOCK_BYTES) + kc * kStepMNMajor);
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) fence_regs(acc[j]);
+    __syncthreads();  // both warpgroups are done with V(t)
+    if (more) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        load_tile<BK, THREADS>(sV + j * BLOCK_BYTES, vb, D, (t + 1) * BK, lk, 64 * j, tid);
+    }
+    cp_async_commit();
+  }
+
+  const int r0 = q0 + warp * 16 + (lane >> 2);
+  const int row[2] = {r0, r0 + 8};
+  const float lsum[2] = {row_sum(l[0]), row_sum(l[1])};
+  const float inv[2] = {1.f / lsum[0], 1.f / lsum[1]};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    store_o_block(o + bh * (size_t)lq * D, D, acc[j], row, inv, lq, (wg * 4 + j) * 64, lane4);
+  if (lse != nullptr && wg == 0 && lane4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < lq) lse[bh * (size_t)lq + row[h]] = m[h] * kLn2 + logf(lsum[h]);
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch_wgmma(Kernel kern, int threads, int bq, size_t smem, const void* q,
+                         const void* k, const void* v, void* o, float* lse, int bh, int lq, int lk,
+                         int d, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((lq + bq - 1) / bq, bh);
+  kern<<<grid, threads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, lq, lk, kLog2e / sqrtf((float)d));
+  return cudaGetLastError();
+}
+
+template <int NWG>
+cudaError_t launch_d64(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                       int lq, int lk, cudaStream_t stream) {
+  constexpr int BK = FLASH_D64_BK;
+  // 1024 bytes of slack to align the tiles to the swizzle's 1024-byte period
+  return launch_wgmma(flash_fwd_kernel_wgmma_d64<NWG, BK, FLASH_D64_MIN_CTAS>, NWG * 128, NWG * 64,
+                      1024 + NWG * 64 * 128 + 4 * BK * 128, q, k, v, o, lse, bh, lq, lk, 64, stream);
+}
+
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                          int lq, int lk, int d, cudaStream_t stream) {
+  if (d == 64) {
+    // a grid of large tiles that cannot give every SM a CTA takes the smaller tile
+    int device = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    constexpr int BQ = FLASH_D64_NWG * 64;
+    if ((long long)bh * ((lq + BQ - 1) / BQ) <= sms)
+      return launch_d64<FLASH_D64_SMALL_GRID_NWG>(q, k, v, o, lse, bh, lq, lk, stream);
+    return launch_d64<FLASH_D64_NWG>(q, k, v, o, lse, bh, lq, lk, stream);
+  }
+  if (d == 512)
+    return launch_wgmma(flash_fwd_kernel_wgmma_d512, 256, 64, 1024 + 3 * 8 * 64 * 128, q, k, v, o,
+                        lse, bh, lq, lk, d, stream);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// f32: register-tiled FMA kernel
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 256;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // D: head dim; BQ x BK: query x key tile; SR x SC: per-thread tile of S;
 // OR x OC: per-thread tile of O.
@@ -83,11 +582,11 @@ struct Tiles {
 using Tiles64 = Tiles<64, 64, 64, 4, 4, 4, 4>;
 using Tiles512 = Tiles<512, 32, 32, 2, 2, 4, 16>;
 
-template <typename T, typename C>
+template <typename C>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int lq, int lk, float scale) {
+flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                     int lq, int lk, float scale) {
   constexpr int D = C::D, BQ = C::BQ, BK = C::BK, DP = C::DP, BKP = C::BKP;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem + C::Q_OFF;
@@ -101,16 +600,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
   const size_t bh = blockIdx.y;
-  const T* qb = q + bh * (size_t)lq * D;
-  const T* kb = k + bh * (size_t)lk * D;
-  const T* vb = v + bh * (size_t)lk * D;
-  T* ob = o + bh * (size_t)lq * D;
+  const float* qb = q + bh * (size_t)lq * D;
+  const float* kb = k + bh * (size_t)lk * D;
+  const float* vb = v + bh * (size_t)lk * D;
+  float* ob = o + bh * (size_t)lq * D;
 
   // Q tile (rows past lq are zero and never stored) and the running stats
   for (int idx = tid; idx < BQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int qr = q0 + r;
-    Qs[r * DP + c] = qr < lq ? to_f32(qb[(size_t)qr * D + c]) : 0.f;
+    Qs[r * DP + c] = qr < lq ? qb[(size_t)qr * D + c] : 0.f;
   }
   for (int r = tid; r < BQ; r += kThreads) {
     Ms[r] = kNegInf;
@@ -137,8 +636,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / D, c = idx % D;
       const int kr = k0 + r;
       const bool ok = kr < lk;
-      Ks[r * DP + c] = ok ? to_f32(kb[(size_t)kr * D + c]) : 0.f;
-      Vs[r * D + c] = ok ? to_f32(vb[(size_t)kr * D + c]) : 0.f;
+      Ks[r * DP + c] = ok ? kb[(size_t)kr * D + c] : 0.f;
+      Vs[r * D + c] = ok ? vb[(size_t)kr * D + c] : 0.f;
     }
     __syncthreads();
 
@@ -239,8 +738,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qr >= lq) continue;
     const float inv = 1.f / fmaxf(Ls[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < C::OC; ++j)
-      ob[(size_t)qr * D + ox + j * C::O_COLS] = from_f32<T>(acc[i][j] * inv);
+    for (int j = 0; j < C::OC; ++j) ob[(size_t)qr * D + ox + j * C::O_COLS] = acc[i][j] * inv;
   }
   // the stats form: per-row logsumexp (the loop's last barrier made Ms and Ls final)
   if (lse != nullptr) {
@@ -249,25 +747,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, typename C>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                   int lq, int lk, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, C>;
+template <typename C>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                       int lq, int lk, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel_f32<C>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((lq + C::BQ - 1) / C::BQ, bh);
   kern<<<grid, kThreads, C::SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, lq, lk, 1.0f / sqrtf((float)C::D));
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, lq, lk, 1.0f / sqrtf((float)C::D));
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse,
-                       int bh, int lq, int lk, int d, cudaStream_t stream) {
-  if (d == 64) return launch<T, Tiles64>(q, k, v, o, lse, bh, lq, lk, stream);
-  if (d == 512) return launch<T, Tiles512>(q, k, v, o, lse, bh, lq, lk, stream);
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                         int lq, int lk, int d, cudaStream_t stream) {
+  if (d == 64) return launch_f32<Tiles64>(q, k, v, o, lse, bh, lq, lk, stream);
+  if (d == 512) return launch_f32<Tiles512>(q, k, v, o, lse, bh, lq, lk, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -275,15 +772,16 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
              int lk, int d, int dtype, void* stream) {
   if (bh <= 0 || lq <= 0 || lk <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_d<float>(q, k, v, o, lse, bh, lq, lk, d, s);
-  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, lse, bh, lq, lk, d, s);
+  if (dtype == 0) return (int)dispatch_f32(q, k, v, o, lse, bh, lq, lk, d, s);
+  if (dtype == 1) return (int)dispatch_bf16(q, k, v, o, lse, bh, lq, lk, d, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, o: [bh, lq, d]; k, v: [bh, lk, d], contiguous. dtype 0 = float32,
-// 1 = bfloat16. Returns the CUDA error code of the launch (0 on success).
+// q, o: [bh, lq, d]; k, v: [bh, lk, d], contiguous and 16-byte aligned.
+// dtype 0 = float32, 1 = bfloat16. Returns the CUDA error code of the launch
+// (0 on success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                               int bh, int lq, int lk, int d, int dtype, void* stream) {
   return dispatch(q, k, v, o, nullptr, bh, lq, lk, d, dtype, stream);

@@ -10,6 +10,13 @@ two sources, none of which materialises the ``[L, Lk]`` score matrix:
   (``_flash_bwd_dkdv_kernel``), which recompute the probabilities from the
   saved logsumexp.
 
+For bf16 inputs the forward runs both products on the tensor cores
+(``wgmma``), keeps S and P in registers, takes the exponentials in base 2 and
+rounds P to bf16 before P·V; f32 inputs keep an FMA body.
+``flash_attention_tiled_reference`` emulates that arithmetic tile by tile in
+plain PyTorch, so that its numerics are held against the JAX package on the
+CPU; nothing on the main path calls it.
+
 On a CPU tensor ``flash_attention`` computes the plain version and autograd
 differentiates it. On a CUDA tensor it launches the kernels or raises: the
 plain forward without grad, and a ``torch.autograd.Function`` (forward with
@@ -20,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +41,7 @@ LAUNCHES_BWD_DKDV = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 512)
+_NEG_INF = -1e30  # the score of a key past Lk, as in the kernels
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -49,6 +57,51 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("blk,bkd->bld", p, v.float()).to(q.dtype)
     if return_stats:
         return out, torch.logsumexp(s, dim=-1)
+    return out
+
+
+def flash_attention_tiled_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    return_stats: bool = False, kv_tile: Optional[int] = None):
+    """The tensor-core forward kernel's arithmetic, tile by tile in plain PyTorch.
+
+    What ``csrc/flash_attn_fwd.cu`` does for bf16 inputs: an online softmax over
+    key tiles of ``kv_tile`` (the kernels' 128 at D = 64 and 64 at D = 512 when
+    not given) in base 2 with ``scale * log2(e)`` folded into one multiply-add,
+    keys at or past ``Lk`` (the zero-filled rest of the last tile) set to -1e30
+    before the row max, the normalizer summed from the f32 exponentials, P
+    rounded to the inputs' type before P·V (no rounding for f32 inputs, which
+    take the FMA kernel on the card), ``o = acc / max(l, 1e-30)`` and the
+    logsumexp converted back to natural log, ``m * ln2 + log(l)``.
+    """
+    BH, L, D = q.shape
+    Lk = k.shape[1]
+    if kv_tile is None:
+        kv_tile = 128 if D <= 64 else 64
+    c = torch.tensor(math.log2(math.e) / math.sqrt(D), dtype=torch.float32)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((BH, L), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((BH, L), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((BH, L, D), dtype=torch.float32, device=q.device)
+    for k0 in range(0, Lk, kv_tile):
+        kt, vt = kf[:, k0:k0 + kv_tile], vf[:, k0:k0 + kv_tile]
+        pad = kv_tile - kt.shape[1]
+        if pad:  # the loads fill rows past Lk with zeros
+            kt = torch.nn.functional.pad(kt, (0, 0, 0, pad))
+            vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
+        s = torch.einsum("bld,bkd->blk", qf, kt)
+        valid = torch.arange(k0, k0 + kv_tile, device=q.device) < Lk
+        s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        alpha = torch.exp2(m - m_new)
+        e = torch.exp2(s * c - m_new[..., None])
+        l = l * alpha + e.sum(-1)
+        p = e.to(q.dtype).float()
+        acc = acc * alpha[..., None] + torch.einsum("blk,bkd->bld", p, vt)
+        m = m_new
+    l = l.clamp_min(1e-30)
+    out = (acc / l[..., None]).to(q.dtype)
+    if return_stats:
+        return out, m * math.log(2.0) + torch.log(l)
     return out
 
 
@@ -86,17 +139,30 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention needs contiguous q, k and v")
     if BH > 65535:
         raise ValueError(f"flash_attention takes at most 65535 batch-heads, got {BH}")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_attention needs 16-byte aligned q, k and v")
+
+
+_FUNCTIONS = {}  # (source, entry point) -> the ctypes function with its argument types set
 
 
 def _call(source: str, name: str, pointers, ints, device) -> None:
     """Call the C entry point ``name`` of ``csrc/<source>.cu`` (pointers, then ints,
     then the stream) and raise on a CUDA error."""
-    fn = getattr(_build.load(source), name)
-    fn.argtypes = [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*pointers, *ints, stream)
+    key = (source, name)
+    fn = _FUNCTIONS.get(key)
+    if fn is None:
+        fn = getattr(_build.load(source), name)
+        fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[key] = fn
+    # the launch goes to the current device: switch only for a tensor that lies elsewhere
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*pointers, *ints, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*pointers, *ints, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
