@@ -8,9 +8,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                exits 2 when CUDA is unavailable.
 2. build    -- builds every kernel from ``triplaneturbo_torch/csrc`` with nvcc and
                prints each one's ``-Xptxas -v`` lines; where the toolkit has
-               ``cuobjdump``, counts in the forward's SASS the tensor-core (HGMMA),
-               exp, async-copy and shared-store instructions of each kernel and
-               requires HGMMA and no shared-memory store in the bf16 ones.
+               ``cuobjdump``, counts in the SASS of the flash forward and backward
+               the tensor-core (HGMMA), exp, async-copy and shared-store instructions
+               of each kernel and requires HGMMA, async copies and no shared-memory
+               store (no score tile leaves the registers) in the bf16 ones.
 3. kernels  -- holds each kernel against its plain PyTorch version at every shape its
                main path gives it, and times kernel, plain version and the library
                call: the flash forward at the serving shapes (one prompt) and the
@@ -21,6 +22,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                tensor-core tiling (one row or key below and above a tile, one key,
                one batch-head, Lk = 77, q scaled by 8; bf16 and f32), where they
                must also agree with each other and from run to run bit for bit;
+               the dq and dk/dv kernels at the edges of their tensor-core tiling
+               (bf16: one row or key below and above each tile on both sides, one
+               key, one batch-head, Lk = 77, q scaled by 8, q = -12 times the first
+               key, D = 512 at 63/65/129) against the plain backward and from run
+               to run bit for bit;
                the field-grid slab backward against autograd of the plain field at
                R=160 (v1) and R=40 (v2). Times are CUDA-event means of calls
                through the wrapper, queued behind a spin kernel that outlasts the
@@ -29,8 +35,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                Tolerances: f32 1e-4 absolute (sums run in another order than the
                plain version's); bf16 1e-2 of the largest reference value at the
                site, for each output (a bf16 result's own rounding is at most 2^-9
-               of it, the tensor-core forward rounds P to bf16 before P V, and the
-               backward also takes delta from the bf16-rounded forward output);
+               of it, the tensor-core kernels round P, and the backward dS, to bf16
+               before the products that read them, and the backward also takes
+               delta from the bf16-rounded forward output), at the backward's edge
+               cases never tighter than 1e-4 (with one key dq and dk vanish);
                the logsumexp 1e-4 absolute in both types; field grid 1e-4 absolute, its backward
                1e-4 of the largest reference gradient of each input.
 4. reference -- a small model (head dim 64, so every attention and the field grid
@@ -110,6 +118,24 @@ EDGE_SHAPES = [("cross 256/77", 2, 256, 77, 64, 1.0), ("one key 130/1", 2, 130, 
                ("D=512 below the tiles 63/63", 1, 63, 63, 512, 1.0),
                ("D=512 above the tiles 65/65", 2, 65, 65, 512, 1.0),
                ("D=512 64/129", 1, 64, 129, 512, 1.0)]
+# Edges of the tensor-core backward's tiling (64 rows of the owned side a warpgroup: queries
+# for dq, keys for dk/dv; 64 rows of the streamed side a tile at D = 64, 32 at D = 512):
+# (site, BH, L, Lk, D, scale of q; a negative scale makes every query that multiple of the
+# first key, so that lse is about -96 and an unmasked zero-filled key gives exp(96) = inf).
+BWD_EDGE_SHAPES = [("below the tiles 63/63", 2, 63, 63, 64, 1.0),
+                   ("above the tiles 65/65", 2, 65, 65, 64, 1.0),
+                   ("queries below, keys above 63/129", 2, 63, 129, 64, 1.0),
+                   ("queries above, keys below 129/63", 2, 129, 63, 64, 1.0),
+                   ("around two tiles 127/129", 3, 127, 129, 64, 1.0),
+                   ("around two tiles 129/127", 3, 129, 127, 64, 1.0),
+                   ("one batch-head 128/128", 1, 128, 128, 64, 1.0),
+                   ("cross 256/77", 2, 256, 77, 64, 1.0), ("one key 130/1", 2, 130, 1, 64, 1.0),
+                   ("one key, lse -96, 130/1", 2, 130, 1, 64, -12.0),
+                   ("large grid 129/129", 70, 129, 129, 64, 1.0),
+                   ("q times 8 700/700", 2, 700, 700, 64, 8.0),
+                   ("D=512 63/65", 1, 63, 65, 512, 1.0), ("D=512 65/63", 2, 65, 63, 512, 1.0),
+                   ("D=512 129/129", 1, 129, 129, 512, 1.0),
+                   ("D=512 31/33", 2, 31, 33, 512, 1.0)]
 FLASH_PER_PASS = sum(s[-1] for s in TRAIN_ATTN_SHAPES)  # 26: one UNet pass and one VAE decode
 # absolute, except flash attention in bf16: a fraction of max |reference|
 TOL = {("flash_attn_fwd", "float32"): 1e-4, ("flash_attn_fwd", "bfloat16"): 1e-2,
@@ -226,16 +252,23 @@ def phase_build():
         lines = [ln.strip() for ln in _build.ptxas_report(name).splitlines()
                  if "ptxas info" in ln and ("Used" in ln or "spill" in ln or "Compiling" in ln)]
         report[name] = lines
-    # the bf16 forward runs both products on the tensor cores and keeps no score tile in
-    # shared memory: its kernels hold HGMMA and not one plain shared-memory store
-    sass = sass_census(libraries["flash_attn_fwd"])
-    if sass is not None:
-        wgmma = {k: v for k, v in sass.items() if "flash_fwd_kernel_wgmma" in k}
-        check(len(wgmma) >= 3, f"expected the tensor-core forward kernels in the SASS: {list(sass)}")
+    # the bf16 flash kernels run every product on the tensor cores and keep no score tile
+    # in shared memory: each holds HGMMA, async copies and not one plain shared-memory store
+    sass = {}
+    for lib, symbol, n_kernels in (("flash_attn_fwd", "flash_fwd_kernel_wgmma", 3),
+                                   ("flash_attn_bwd", "_kernel_wgmma", 4)):
+        sass[lib] = sass_census(libraries[lib])
+        if sass[lib] is None:
+            continue
+        wgmma = {k: v for k, v in sass[lib].items() if symbol in k}
+        check(len(wgmma) >= n_kernels,
+              f"expected the tensor-core kernels of {lib} in the SASS: {list(sass[lib])}")
         for k, v in wgmma.items():
             check(v["HGMMA"] > 0 and v["STS"] == 0 and v["LDGSTS"] > 0 and v["MUFU.EX2"] > 0,
                   f"{k}: SASS census {v}")
-    emit({"phase": "build", "seconds": seconds, "ptxas": report, "sass_flash_attn_fwd": sass})
+    emit({"phase": "build", "seconds": seconds, "ptxas": report,
+          "sass_flash_attn_fwd": sass["flash_attn_fwd"],
+          "sass_flash_attn_bwd": sass["flash_attn_bwd"]})
 
 
 def attention_case(site, BH, L, Lk, D, dtype_name, gen):
@@ -432,6 +465,48 @@ def forward_edge_case(site, BH, L, Lk, D, q_scale, dtype_name, gen):
     return rows
 
 
+def backward_edge_case(site, BH, L, Lk, D, q_scale, gen):
+    """The bf16 dq and dk/dv kernels at an edge of their tiling: against the plain
+    backward (fed by the plain forward's o and lse) and from run to run, bit for bit.
+    No timing."""
+    import torch
+    from triplaneturbo_torch.ops import flash_attention as fa
+
+    k = torch.randn(BH, Lk, D, device="cuda", generator=gen)
+    if q_scale < 0:
+        q = q_scale * k[:, :1] + 0.1 * torch.randn(BH, L, D, device="cuda", generator=gen)
+    else:
+        q = torch.randn(BH, L, D, device="cuda", generator=gen) * q_scale
+    v, g = (torch.randn(BH, n, D, device="cuda", generator=gen) for n in (Lk, L))
+    q, k, v, g = (t.bfloat16().contiguous() for t in (q, k, v, g))
+    out, lse = fa._launch(q, k, v, return_stats=True)
+    delta = fa.flash_delta(out, g)
+    runs = [(fa._launch_dq(q, k, v, g, lse, delta), *fa._launch_dkdv(q, k, v, g, lse, delta))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    name = f"{site} bfloat16"
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), f"backward edge {name}: two runs differ")
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o_ref, lse_ref = fa.flash_attention_reference(qf, kf, vf, return_stats=True)
+    refs = fa.flash_attention_bwd_reference(qf, kf, vf, o_ref, lse_ref, g.float())
+    errs, tols = {}, {}
+    for what, got, ref in zip(("dq", "dk", "dv"), runs[0], refs):
+        errs[what] = (got.float() - ref).abs().max().item()
+        tols[what] = max(TOL[("flash_attn_bwd", "bfloat16")] * ref.abs().max().item(),
+                         TOL[("flash_attn_bwd", "float32")])
+        check(math.isfinite(errs[what]), f"backward edge {name}: non-finite {what}")
+        check(errs[what] <= tols[what],
+              f"backward edge {name}: {what} max abs err {errs[what]} > {tols[what]}")
+    rows = []
+    for kernel, names in (("flash_attn_bwd_dq", ("dq",)), ("flash_attn_bwd_dkdv", ("dk", "dv"))):
+        rows.append({"phase": "kernel_edge_case", "kernel": kernel, "site": site,
+                     "dtype": "bfloat16", "BH": BH, "L": L, "Lk": Lk, "D": D, "q_scale": q_scale,
+                     "max_abs_err": max(errs[n] for n in names),
+                     "tol": max(tols[n] for n in names), "errors": errs, "tols": tols})
+    emit(rows[1])
+    return rows
+
+
 def field_grid_backward_case(R, C, concat, gen):
     """The slab backward of the field grid (plain PyTorch, as the JAX package's is
     XLA) behind the kernel's autograd function, against autograd of the plain field."""
@@ -497,6 +572,8 @@ def phase_kernels():
     for site, BH, L, Lk, D, q_scale in EDGE_SHAPES:
         for dtype_name in ("bfloat16", "float32"):
             rows += forward_edge_case(site, BH, L, Lk, D, q_scale, dtype_name, gen)
+    for site, BH, L, Lk, D, q_scale in BWD_EDGE_SHAPES:
+        rows += backward_edge_case(site, BH, L, Lk, D, q_scale, gen)
     rows.append(field_grid_backward_case(160, 32, False, gen))
     rows.append(field_grid_backward_case(40, 32, True, gen))
     torch.cuda.empty_cache()

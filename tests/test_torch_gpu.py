@@ -177,6 +177,95 @@ def test_flash_backward_is_the_same_from_run_to_run(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+# Edges of the tensor-core backward's tiling: 64 rows of the owned side a warpgroup (query
+# rows for dq, keys for dk/dv), 64 rows of the streamed side a tile at D = 64 and 32 at
+# D = 512, one row or key below and above each on both sides; Lk = 77, one key, one
+# batch-head; a grid large enough for multi-warpgroup CTAs.
+BWD_EDGE_CASES = [(2, 63, 63, 64), (2, 65, 65, 64), (2, 63, 129, 64), (2, 129, 63, 64),
+                  (3, 127, 129, 64), (3, 129, 127, 64), (2, 191, 193, 64), (1, 128, 128, 64),
+                  (2, 256, 77, 64), (2, 130, 1, 64), (70, 129, 129, 64), (34, 520, 77, 64),
+                  (1, 63, 65, 512), (2, 65, 63, 512), (1, 129, 129, 512), (2, 31, 33, 512),
+                  (1, 33, 31, 512), (2, 64, 1, 512)]
+
+
+def _bwd_inputs(gen, BH, L, Lk, D, q_scale=1.0):
+    """bf16 q, k, v, g; a negative q_scale makes every query that multiple of the first key."""
+    k = _randn(gen, BH, Lk, D)
+    if q_scale < 0:
+        q = q_scale * k[:, :1] + _randn(gen, BH, L, D, scale=0.1)
+    else:
+        q = _randn(gen, BH, L, D, scale=q_scale)
+    v, g = _randn(gen, BH, Lk, D), _randn(gen, BH, L, D)
+    return tuple(t.bfloat16().contiguous() for t in (q, k, v, g))
+
+
+def _bwd_kernels(q, k, v, g):
+    out, lse = fa._launch(q, k, v, return_stats=True)
+    delta = fa.flash_delta(out, g)
+    dq = fa._launch_dq(q, k, v, g, lse, delta)
+    dk, dv = fa._launch_dkdv(q, k, v, g, lse, delta)
+    torch.cuda.synchronize()
+    return (dq, dk, dv), out, lse
+
+
+def _hold_bwd_against_plain(q, k, v, g, grads):
+    """bf16 within 1e-2 of each output's largest reference value, never tighter than the
+    1e-4 of f32 (an output that vanishes, as dq and dk do with one key, is rounding noise)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o_ref, lse_ref = fa.flash_attention_reference(qf, kf, vf, return_stats=True)
+    refs = fa.flash_attention_bwd_reference(qf, kf, vf, o_ref, lse_ref, g.float())
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape, name
+        assert bool(torch.isfinite(got).all()), name
+        tol = max(1e-2 * ref.abs().max().item(), 1e-4)
+        err = (got.float() - ref).abs().max().item()
+        assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.parametrize("BH,L,Lk,D", BWD_EDGE_CASES)
+def test_flash_backward_kernels_at_the_edges_of_the_tiling(cuda, BH, L, Lk, D):
+    gen = torch.Generator(device="cuda").manual_seed(L * 13 + Lk + D)
+    q, k, v, g = _bwd_inputs(gen, BH, L, Lk, D)
+    grads, _, _ = _bwd_kernels(q, k, v, g)
+    _hold_bwd_against_plain(q, k, v, g, grads)
+
+
+@pytest.mark.parametrize("BH,L,Lk,D,q_scale", [(2, 700, 700, 64, 8.0), (2, 130, 1, 64, -12.0),
+                                               (1, 100, 77, 512, -12.0)])
+def test_flash_backward_kernels_hold_extreme_scores(cuda, BH, L, Lk, D, q_scale):
+    """q x 8: nearly one-hot rows, lse varying widely across the queries, which a mix-up
+    of rows and columns of lse in dk/dv shows. q = -12 k0: lse about -96, where the
+    zero-filled keys of a tile would give P = exp(96) = inf without the key mask."""
+    gen = torch.Generator(device="cuda").manual_seed(L + Lk)
+    q, k, v, g = _bwd_inputs(gen, BH, L, Lk, D, q_scale)
+    grads, _, _ = _bwd_kernels(q, k, v, g)
+    _hold_bwd_against_plain(q, k, v, g, grads)
+
+
+@pytest.mark.parametrize("BH,L,Lk,D", [(2, 700, 700, 64), (2, 300, 1200, 64), (4, 256, 77, 64),
+                                       (2, 200, 130, 512)])
+def test_flash_backward_kernels_match_their_tiled_emulation(cuda, BH, L, Lk, D):
+    """bf16: the kernels and their plain tile-by-tile emulation differ in the order of the
+    f32 sums, and so where a rounded P or dS falls: each output is within 2^-7 of its
+    largest emulated value."""
+    gen = torch.Generator(device="cuda").manual_seed(L + 3 * Lk)
+    q, k, v, g = _bwd_inputs(gen, BH, L, Lk, D)
+    grads, out, lse = _bwd_kernels(q, k, v, g)
+    emu = fa.flash_attention_bwd_tiled_reference(q, k, v, out, lse, g)
+    for name, got, e in zip(("dq", "dk", "dv"), grads, emu):
+        e = e.float()
+        assert (got.float() - e).abs().max().item() <= 2 ** -7 * e.abs().max().item(), name
+
+
+@pytest.mark.parametrize("BH,L,Lk,D", [(4, 700, 333, 64), (70, 200, 300, 64), (2, 200, 130, 512)])
+def test_flash_backward_bf16_is_the_same_from_run_to_run(cuda, BH, L, Lk, D):
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, g = _bwd_inputs(gen, BH, L, Lk, D)
+    a, _, _ = _bwd_kernels(q, k, v, g)
+    b, _, _ = _bwd_kernels(q, k, v, g)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def test_flash_attention_without_grad_keeps_the_plain_forward(cuda):
     gen = torch.Generator(device="cuda").manual_seed(4)
     q = _randn(gen, 2, 256, 64).requires_grad_()

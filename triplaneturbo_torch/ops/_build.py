@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Every ``csrc/*.cu`` file has a plain C interface and becomes its own shared
-library under ``triplaneturbo_torch/_build/``, named by a hash of its source
-and the compiler flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. The first use builds all sources at once, one ``nvcc`` process
-each. The ``-Xptxas -v`` report (registers, shared memory, spills) is kept
-beside each library for ``chip_smoke.py`` to print.
+library under ``triplaneturbo_torch/_build/``, named by a hash of its source,
+the shared headers (``csrc/*.cuh``) and the compiler flags, so an edited source
+or header is rebuilt and an unchanged one is loaded as it is. The first use
+builds all sources at once, one ``nvcc`` process each. The ``-Xptxas -v``
+report (registers, shared memory, spills) is kept beside each library for
+``chip_smoke.py`` to print.
 
 Nothing here runs at import: the CPU tests import every module of the port,
 and the CPU has no ``nvcc``.
@@ -45,8 +46,13 @@ def _nvcc() -> str:
 
 
 def _artifact(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{h}.so"
+    """The library of one source, named by a hash of the source, every shared
+    header (``csrc/*.cuh``, which any source may include) and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def sources() -> Dict[str, Path]:

@@ -10,12 +10,13 @@ two sources, none of which materialises the ``[L, Lk]`` score matrix:
   (``_flash_bwd_dkdv_kernel``), which recompute the probabilities from the
   saved logsumexp.
 
-For bf16 inputs the forward runs both products on the tensor cores
-(``wgmma``), keeps S and P in registers, takes the exponentials in base 2 and
-rounds P to bf16 before P·V; f32 inputs keep an FMA body.
-``flash_attention_tiled_reference`` emulates that arithmetic tile by tile in
-plain PyTorch, so that its numerics are held against the JAX package on the
-CPU; nothing on the main path calls it.
+For bf16 inputs every kernel runs its products on the tensor cores
+(``wgmma``), keeps the score tiles (S and P; in the backward also dP and dS)
+in registers, takes the exponentials in base 2 and rounds P (and dS) to bf16
+before the products that read them; f32 inputs keep FMA bodies.
+``flash_attention_tiled_reference`` and ``flash_attention_bwd_tiled_reference``
+emulate that arithmetic tile by tile in plain PyTorch, so that its numerics are
+held against the JAX package on the CPU; nothing on the main path calls them.
 
 On a CPU tensor ``flash_attention`` computes the plain version and autograd
 differentiates it. On a CUDA tensor it launches the kernels or raises: the
@@ -124,6 +125,73 @@ def flash_attention_bwd_reference(q, k, v, o, lse, g) -> Tuple[torch.Tensor, ...
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd_tiled_reference(q, k, v, o, lse, g, q_tile: Optional[int] = None,
+                                        kv_tile: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """The tensor-core backward kernels' arithmetic, tile by tile in plain PyTorch.
+
+    What ``csrc/flash_attn_bwd.cu`` does for bf16 inputs, on tiles of
+    ``q_tile`` queries and ``kv_tile`` keys (64 at D = 64 and 32 at D = 512
+    when not given) zero-filled past L and Lk as the kernels' loads are:
+    P = 2^(S · scale·log2(e) − lse·log2(e)) from the natural-log ``lse``, set
+    to 0 at keys past Lk and at queries past L; dS = P ∘ (dP − δ) from the f32
+    P; P and dS rounded to the inputs' type before Pᵀ·dO, dS·K and dSᵀ·Q (no
+    rounding for f32 inputs, which take the FMA kernels on the card), f32 sums,
+    and ``scale`` applied to dq and dk at the store. dq runs over key tiles
+    for each query tile; dk and dv over query tiles for each key tile, from
+    the transposes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, so that lse and δ are read by
+    column there as in the kernel. Returns (dq, dk, dv) in the inputs' types.
+    """
+    BH, L, D = q.shape
+    Lk = k.shape[1]
+    tile = 64 if D <= 64 else 32
+    q_tile, kv_tile = q_tile or tile, kv_tile or tile
+    scale = 1.0 / math.sqrt(D)
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    c = log2e * torch.tensor(scale, dtype=torch.float32)
+    nq, nk = -(-L // q_tile) * q_tile, -(-Lk // kv_tile) * kv_tile
+
+    def pad(t, n):  # zero rows past the end, as the kernels' loads fill them
+        return torch.nn.functional.pad(t.float(), (0, 0, 0, n - t.shape[1]))
+
+    qf, gf, kf, vf = pad(q, nq), pad(g, nq), pad(k, nk), pad(v, nk)
+    # lse · log2(e) and δ of every query, zero past L
+    lse2 = torch.nn.functional.pad(lse.float() * log2e, (0, nq - L))
+    delta = torch.nn.functional.pad(flash_delta(o, g), (0, nq - L))
+    q_ok = torch.arange(nq, device=q.device) < L
+    k_ok = torch.arange(nk, device=q.device) < Lk
+
+    def rnd(x):  # the operand of a tensor-core product: rounded to the inputs' type
+        return x.to(q.dtype).float()
+
+    dq = torch.zeros((BH, nq, D), dtype=torch.float32, device=q.device)
+    for q0 in range(0, nq, q_tile):
+        qs = slice(q0, q0 + q_tile)
+        for k0 in range(0, nk, kv_tile):
+            ks = slice(k0, k0 + kv_tile)
+            s = torch.einsum("bld,bkd->blk", qf[:, qs], kf[:, ks])
+            p = torch.exp2(s * c - lse2[:, qs, None])
+            p = torch.where(q_ok[qs, None] & k_ok[None, ks], p, torch.zeros_like(p))
+            dp = torch.einsum("bld,bkd->blk", gf[:, qs], vf[:, ks])
+            ds = p * (dp - delta[:, qs, None])
+            dq[:, qs] += torch.einsum("blk,bkd->bld", rnd(ds), kf[:, ks])
+    dk = torch.zeros((BH, nk, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, nk, kv_tile):
+        ks = slice(k0, k0 + kv_tile)
+        for q0 in range(0, nq, q_tile):
+            qs = slice(q0, q0 + q_tile)
+            st = torch.einsum("bkd,bld->bkl", kf[:, ks], qf[:, qs])
+            pt = torch.exp2(st * c - lse2[:, None, qs])
+            pt = torch.where(k_ok[ks, None] & q_ok[None, qs], pt, torch.zeros_like(pt))
+            dpt = torch.einsum("bkd,bld->bkl", vf[:, ks], gf[:, qs])
+            dst = pt * (dpt - delta[:, None, qs])
+            dv[:, ks] += torch.einsum("bkl,bld->bkd", rnd(pt), gf[:, qs])
+            dk[:, ks] += torch.einsum("bkl,bld->bkd", rnd(dst), qf[:, qs])
+    scale_t = torch.tensor(scale, dtype=torch.float32)
+    return ((dq[:, :L] * scale_t).to(q.dtype), (dk[:, :Lk] * scale_t).to(k.dtype),
+            dv[:, :Lk].to(v.dtype))
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     BH, L, D = q.shape
     Lk = k.shape[1]
@@ -197,6 +265,8 @@ def _bwd_args(q, k, v, g, lse, delta):
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash backward needs a contiguous {name}")
+    if g.data_ptr() % 16:
+        raise ValueError("flash backward needs a 16-byte aligned g")
     pointers = tuple(t.data_ptr() for t in (q, k, v, g, lse, delta))
     return pointers, (BH, L, k.shape[1], D, _DTYPES[q.dtype])
 
