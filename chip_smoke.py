@@ -9,13 +9,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build    -- builds every kernel from ``triplaneturbo_torch/csrc`` with nvcc and
                prints each one's ``-Xptxas -v`` lines; where the toolkit has
                ``cuobjdump``, counts in the SASS of the flash forward and backward
-               the tensor-core (HGMMA), exp, async-copy and shared-store instructions
-               of each kernel and requires HGMMA, async copies and no shared-memory
-               store (no score tile leaves the registers) in the bf16 ones.
+               and of the field grid the tensor-core (HGMMA), exp, async-copy and
+               shared-store instructions of each kernel and requires HGMMA, async
+               copies and no shared-memory store (no score tile leaves the
+               registers) in the bf16 flash kernels, and HGMMA and async copies in
+               the field-grid kernel.
 3. kernels  -- holds each kernel against its plain PyTorch version at every shape its
                main path gives it, and times kernel, plain version and the library
                call: the flash forward at the serving shapes (one prompt) and the
-               field grid at R=160; the flash forward with stats, the dq and the
+               field grid at R=160 (and at the edges of its tiling, R = 37, 63, 64,
+               65, 129); the flash forward with stats, the dq and the
                dk/dv kernels at the training shapes (two prompts), in bf16 at all six
                sites and in f32 at the joint and VAE sites, plus ragged lengths
                (700/700, 300/1200); both forms of the forward at the edges of its
@@ -32,8 +35,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                through the wrapper, queued behind a spin kernel that outlasts the
                host's enqueueing, so that a kernel shorter than its wrapper's host
                time is still timed on the device.
+               The field grid is also held against its split-TF32 emulation
+               (``field_grid_split_tf32_reference``); its ``bound_ms`` is that of its
+               route, three TF32 products on the tensor cores, and ``bound_f32_ms``
+               that of every product in f32 on the CUDA cores.
                Tolerances: f32 1e-4 absolute (sums run in another order than the
-               plain version's); bf16 1e-2 of the largest reference value at the
+               plain version's); the field grid against its emulation 2e-6 absolute; bf16 1e-2 of the largest reference value at the
                site, for each output (a bf16 result's own rounding is at most 2^-9
                of it, the tensor-core kernels round P, and the backward dS, to bf16
                before the products that read them, and the backward also takes
@@ -84,8 +91,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA cores, HBM3.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores, f32 CUDA cores, HBM3.
+PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 495e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
 # Main-path attention sites at B=1: (site, BH, L, Lk, D, launches per prompt).
@@ -137,11 +144,14 @@ BWD_EDGE_SHAPES = [("below the tiles 63/63", 2, 63, 63, 64, 1.0),
                    ("D=512 129/129", 1, 129, 129, 512, 1.0),
                    ("D=512 31/33", 2, 31, 33, 512, 1.0)]
 FLASH_PER_PASS = sum(s[-1] for s in TRAIN_ATTN_SHAPES)  # 26: one UNet pass and one VAE decode
+FIELD_GRID_EDGE_R = (37, 63, 64, 65, 129)
 # absolute, except flash attention in bf16: a fraction of max |reference|
 TOL = {("flash_attn_fwd", "float32"): 1e-4, ("flash_attn_fwd", "bfloat16"): 1e-2,
        ("flash_attn_fwd_stats", "float32"): 1e-4, ("flash_attn_fwd_stats", "bfloat16"): 1e-2,
        ("flash_attn_bwd", "float32"): 1e-4, ("flash_attn_bwd", "bfloat16"): 1e-2,
-       ("field_grid", "float32"): 1e-4, ("field_grid_bwd", "float32"): 1e-4}
+       ("field_grid", "float32"): 1e-4, ("field_grid_bwd", "float32"): 1e-4,
+       # the field-grid kernel against its split-TF32 emulation: the order of f32 sums only
+       ("field_grid_split", "float32"): 2e-6}
 TIMED_PROMPTS = 3
 STAGES = ("text_encoder", "denoise", "vae_decode", "field_grid", "marching_cubes", "colorize")
 TRAIN_STAGES = ("generator_forward", "mesh_branch", "generator_backward")
@@ -266,9 +276,17 @@ def phase_build():
         for k, v in wgmma.items():
             check(v["HGMMA"] > 0 and v["STS"] == 0 and v["LDGSTS"] > 0 and v["MUFU.EX2"] > 0,
                   f"{k}: SASS census {v}")
+    # the field-grid kernel runs its products on the tensor cores (TF32 HGMMA); its STS are
+    # the one-time staging of W2 and w3, h1 stays in registers
+    sass["field_grid"] = sass_census(libraries["field_grid"])
+    if sass["field_grid"] is not None:
+        fg_kernels = {k: v for k, v in sass["field_grid"].items() if "field_grid_kernel" in k}
+        check(len(fg_kernels) == 1, f"expected field_grid_kernel in the SASS: {list(sass['field_grid'])}")
+        for k, v in fg_kernels.items():
+            check(v["HGMMA"] > 0 and v["LDGSTS"] > 0, f"{k}: SASS census {v}")
     emit({"phase": "build", "seconds": seconds, "ptxas": report,
           "sass_flash_attn_fwd": sass["flash_attn_fwd"],
-          "sass_flash_attn_bwd": sass["flash_attn_bwd"]})
+          "sass_flash_attn_bwd": sass["flash_attn_bwd"], "sass_field_grid": sass["field_grid"]})
 
 
 def attention_case(site, BH, L, Lk, D, dtype_name, gen):
@@ -326,18 +344,37 @@ def field_grid_case(R, C, concat, gen):
     tol = TOL[("field_grid", "float32")]
     name = f"R={R} C={C} {'v2 concat' if concat else 'v1 sum'}"
     check(err <= tol, f"field_grid {name}: max abs err {err} > {tol}")
+    del sdf_r, deform_r
+    # the kernel against its split-TF32 emulation on the same folded inputs
+    prepped = fg._prep(m[0], m[1], m[2], ws[0], ws[3], ws[1], ws[4], ws[2], ws[5], concat)
+    sdf_e, deform_e = fg.field_grid_split_tf32_reference(*prepped, 1.0, 0.5)
+    split_err = max((sdf - sdf_e).abs().max().item(), (deform - deform_e).abs().max().item())
+    split_tol = TOL[("field_grid_split", "float32")]
+    check(split_err <= split_tol,
+          f"field_grid {name}: max abs err against the split emulation {split_err} > {split_tol}")
+    del sdf_e, deform_e
     ms = cuda_ms(lambda: fg.fused_field_grid(*args), 10)
+    kernel_ms = cuda_ms(lambda: fg._launch(*prepped, 1.0, 0.5), 10)
     plain_ms = cuda_ms(lambda: fg.field_grid_reference(*args), 3, warmup=1)
     H, HB = 128, 64
     # layer-1 fold (three [R^2, C] x [C, H] products), then per grid point the plane sum,
     # the two diagonal [HB, HB] blocks of the block-diagonal W2 and the four heads
     # (the sdf head reads the first HB columns, the three deformation heads the rest)
-    flops = 3 * R * R * C * H * 2 + R ** 3 * (2 * H + 2 * 2 * HB * HB + 2 * 4 * HB)
+    products = R ** 3 * 2 * 2 * HB * HB
+    rest = 3 * R * R * C * H * 2 + R ** 3 * (2 * H + 2 * 4 * HB)
     nbytes = 3 * R * R * C * 4 + sum(w.numel() for w in ws) * 4 + 4 * R ** 3 * 4
-    bound_ms, bound_by = bound(flops, nbytes, "float32")
+    # The least time for an f32-accurate result: the products as three TF32 products on
+    # the tensor cores, the rest in f32 on the CUDA cores beside them. `bound_f32_ms` is
+    # the bound of every product in f32 on the CUDA cores (the rows of PRs 1-4).
+    t_ops = max(3 * products / PEAK_FLOPS["tfloat32"], rest / PEAK_FLOPS["float32"])
+    t_bytes = nbytes / PEAK_BYTES
+    bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    bound_f32_ms, _ = bound(products + rest, nbytes, "float32")
     row = {"phase": "kernel_case", "kernel": "field_grid", "site": name, "dtype": "float32",
-           "R": R, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+           "R": R, "max_abs_err": err, "tol": tol, "split_emulation_err": split_err,
+           "split_tol": split_tol, "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_f32_ms": bound_f32_ms}
     emit(row)
     return row
 
@@ -564,6 +601,9 @@ def phase_kernels():
             rows.append(attention_case(site, BH, L, Lk, D, dtype_name, gen))
     rows.append(field_grid_case(160, 32, False, gen))
     rows.append(field_grid_case(160, 32, True, gen))
+    # the edges of the field grid's 8 x 8 tiles: partial (37, 63, 65, 129) and whole (64)
+    for R in FIELD_GRID_EDGE_R:
+        rows.append(field_grid_case(R, 32, False, gen))
     for site, BH, L, Lk, D, _ in TRAIN_ATTN_SHAPES + RAGGED_SHAPES:
         rows += training_attention_case(site, BH, L, Lk, D, "bfloat16", gen)
         if "joint 6 planes" in site and L == 6144 or D == 512 or site.startswith("ragged"):
@@ -1051,7 +1091,7 @@ def kernels_line(rows, serving, training):
     for name, (source, replaces, path) in meta.items():
         mine = [r for r in rows if r["kernel"] == name]
         if name == "field_grid":
-            r = [x for x in mine if "v1" in x["site"]][0]
+            r = [x for x in mine if x["R"] == 160 and "v1" in x["site"]][0]
         else:
             r = [x for x in mine if x["dtype"] == "bfloat16" and x["L"] == 6144][0]
         by_path = {"serving": serving.get(name, 0), "training": training.get(name, 0)}
@@ -1062,6 +1102,8 @@ def kernels_line(rows, serving, training):
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["site"],
         })
+        if name == "field_grid":
+            out[-1].update(bound_f32_ms=r["bound_f32_ms"], kernel_ms=r["kernel_ms"])
     return {"kernels": out}
 
 

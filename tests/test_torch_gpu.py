@@ -304,7 +304,14 @@ def test_attention_dispatcher_gate_on_cuda(cuda):
     fa.attention(q[:, :96], q, q)  # L < 128: the einsum path
     fa.attention(_randn(gen, 1, 256, 2, 32), _randn(gen, 1, 256, 2, 32),
                  _randn(gen, 1, 256, 2, 32))  # D % 64 != 0: the einsum path
+    # D = 128: a multiple of 64 that the kernels are not built for, so the einsum path
+    q, k, v = (_randn(gen, 1, 256, 2, 128) for _ in range(3))
+    out = fa.attention(q, k, v)
+    torch.cuda.synchronize()
     assert fa.LAUNCHES == before + 1
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / 128 ** 0.5
+    ref = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
+    assert (out - ref).abs().max().item() <= 1e-5
 
 
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
@@ -319,21 +326,73 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
         fa.flash_attention(q, q, q)
 
 
-@pytest.mark.parametrize("R,concat", [(16, False), (37, True), (160, False)])
-def test_field_grid_kernel_matches_plain(cuda, R, concat):
-    gen = torch.Generator(device="cuda").manual_seed(R)
-    C = 32
+def _field_grid_inputs(gen, R, concat, C=32):
     cin = 3 * C if concat else C
     m = [_randn(gen, R, R, C, scale=0.3) for _ in range(3)]
     ws = [_randn(gen, cin, 64, scale=0.1), _randn(gen, 64, 64, scale=0.1),
           _randn(gen, 64, 1, scale=0.1), _randn(gen, cin, 64, scale=0.1),
           _randn(gen, 64, 64, scale=0.1), _randn(gen, 64, 3, scale=0.1)]
+    return m + ws
+
+
+def _prep_inputs(args, concat):
+    m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d = args
+    return fg._prep(m_xy, m_xz, m_zy, w1s, w1d, w2s, w2d, w3s, w3d, concat)
+
+
+# Edges of the tensor-core kernel's tiling: tiles of 8 x-values by 8 z-values at one y,
+# so R = 1 (step 0), partial tiles (37, 63, 65, 129), whole ones (16, 64, 160).
+@pytest.mark.parametrize("R,concat", [(R, c) for R in (1, 16, 37, 63, 64, 65, 129, 160)
+                                      for c in (False, True)])
+def test_field_grid_kernel_matches_plain(cuda, R, concat):
+    """Against the plain f32 field the kernel keeps f32 accuracy (1e-5; a single TF32
+    product misses by ten times on such inputs, tests/test_torch_field_grid_split.py);
+    against its split-TF32 emulation it differs only in the order of the f32 sums (2e-6)."""
+    gen = torch.Generator(device="cuda").manual_seed(R)
+    args = _field_grid_inputs(gen, R, concat)
     before = fg.LAUNCHES
-    sdf, deform = fg.fused_field_grid(*m, *ws, 1.0, 0.5, concat)
+    sdf, deform = fg.fused_field_grid(*args, 1.0, 0.5, concat)
     torch.cuda.synchronize()
     assert fg.LAUNCHES == before + 1
-    sdf_r, deform_r = fg.field_grid_reference(*m, *ws, 1.0, 0.5, concat)
     assert sdf.shape == (R, R, R) and deform.shape == (3, R, R, R)
-    assert np.isfinite(sdf.cpu().numpy()).all()
-    assert (sdf - sdf_r).abs().max().item() <= 1e-4
-    assert (deform - deform_r).abs().max().item() <= 1e-4
+    assert np.isfinite(sdf.cpu().numpy()).all() and np.isfinite(deform.cpu().numpy()).all()
+    plain = fg.field_grid_reference(*args, 1.0, 0.5, concat)
+    emu = fg.field_grid_split_tf32_reference(*_prep_inputs(args, concat), 1.0, 0.5)
+    for got, p, e in zip((sdf, deform), plain, emu):
+        assert (got - p).abs().max().item() <= 1e-5
+        assert (got - e).abs().max().item() <= 2e-6
+
+
+@pytest.mark.parametrize("k0", [0, 5, 19, 42, 63, 64, 70, 101, 127])
+def test_field_grid_kernel_with_one_hot_hidden_column(cuda, k0):
+    """h1 nonzero in one column k0 only: h2 = relu(h1[k0] W2[k0]). A mismatch between the
+    permuted reduction index of the register A fragments and that of the staged W2 reads
+    another row of W2 and shows here, where random h1 would average it out."""
+    R = 16
+    gen = torch.Generator(device="cuda").manual_seed(k0)
+    planes = [torch.zeros(R, R, 128, device="cuda") for _ in range(3)]
+    for p in planes:
+        p[..., k0] = _randn(gen, R, R).abs()
+    w2blk = torch.block_diag(_randn(gen, 64, 64, scale=0.1), _randn(gen, 64, 64, scale=0.1))
+    w3t = torch.cat([torch.block_diag(_randn(gen, 64, 1), _randn(gen, 64, 3)).T,
+                     torch.zeros(4, 128, device="cuda")])
+    sdf, deform = fg._launch(*planes, w2blk, w3t, 1.0, 0.5)
+    emu = fg.field_grid_split_tf32_reference(*planes, w2blk, w3t, 1.0, 0.5)
+    h1 = planes[0][:, :, None, k0] + planes[1][:, None, :, k0] + planes[2][None, :, :, k0]
+    h2 = torch.relu(h1[..., None].double() * w2blk[k0].double())
+    heads = h2 @ w3t[:4].T.double()
+    world = torch.linspace(-1.0, 1.0, R, device="cuda", dtype=torch.float64)
+    g = torch.stack(torch.meshgrid(world, world, world, indexing="ij"), -1)
+    want_sdf = heads[..., 0] + g.norm(dim=-1) - 0.5
+    assert (sdf.double() - want_sdf).abs().max().item() <= 1e-5
+    assert (deform.double() - heads[..., 1:].permute(3, 0, 1, 2)).abs().max().item() <= 1e-5
+    assert (sdf - emu[0]).abs().max().item() <= 2e-6
+    assert (deform - emu[1]).abs().max().item() <= 2e-6
+
+
+def test_field_grid_kernel_is_the_same_from_run_to_run(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(65)
+    prepped = _prep_inputs(_field_grid_inputs(gen, 65, True), True)
+    a = fg._launch(*prepped, 1.0, 0.5)
+    b = fg._launch(*prepped, 1.0, 0.5)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -119,6 +119,27 @@ def test_attention_dispatcher_matches_einsum_path(L, Lk, D):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
 
 
+@pytest.mark.parametrize("D", [32, 64, 128, 192, 256, 512])
+def test_attention_gate_admits_only_head_sizes_the_kernels_take(D, monkeypatch):
+    """Every call the gate sends to ``flash_attention`` passes the kernels' ``_check``
+    (D = 128 or 256 used to reach it and raise on the card); the rest takes the
+    einsum path, which matches the JAX package's."""
+    sent = []
+
+    def checked(q, k, v):
+        tfa._check(q, k, v)
+        sent.append(q.shape[-1])
+        return tfa.flash_attention_reference(q, k, v)
+
+    monkeypatch.setattr(tfa, "flash_attention", checked)
+    rng = _rng(D)
+    q, k, v = (_normal(rng, 1, 128, 2, D) for _ in range(3))
+    out = tfa.attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    ref = jap.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), use_pallas=False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
+    assert sent == ([D] if D in tfa._HEAD_DIMS else [])
+
+
 def test_attention_dispatcher_counts_no_launch_on_cpu():
     q = torch.randn(1, 256, 2, 64)
     before = tfa.LAUNCHES

@@ -1,5 +1,5 @@
-// Device helpers shared by the tensor-core flash-attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu) for Hopper (sm_90a): 16-byte
+// Device helpers shared by the tensor-core kernels (flash_attn_fwd.cu,
+// flash_attn_bwd.cu, field_grid.cu) for Hopper (sm_90a): 16-byte
 // `cp.async` fills of 128-byte-swizzled bf16 tiles, `wgmma` shared-memory
 // descriptors, the `wgmma.mma_async` forms the kernels use, and the
 // accumulator-fragment helpers.

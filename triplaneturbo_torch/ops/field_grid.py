@@ -9,7 +9,10 @@ point without materialising the ``[R³, C]`` feature grid.
 ``field_grid_reference`` is the unfused expression, the counterpart of
 ``_reference_field_grid``: on a CPU tensor ``fused_field_grid`` computes it
 (and autograd differentiates it), on a CUDA tensor it launches the kernel or
-raises. When a CUDA input requires grad the call goes through a
+raises. The kernel runs the second layer on the tensor cores as three TF32
+products of split operands; ``field_grid_split_tf32_reference`` repeats that
+arithmetic in plain PyTorch for the tests and ``chip_smoke.py``, and no main
+path calls it. When a CUDA input requires grad the call goes through a
 ``torch.autograd.Function`` whose backward, like the JAX package's, is no
 kernel: :func:`field_grid_slab_backward` recomputes the unfused expression on
 x-slabs of the grid, which bounds the ``[R³, 128]`` temporaries of a whole-grid
@@ -136,6 +139,58 @@ def _prep(m_xy, m_xz, m_zy, w1s, w1d, w2s, w2d, w3s, w3d, concat: bool):
     w3t = torch.cat([w3.T, w3.new_zeros(4, w3.shape[0])], dim=0)  # [8, H]
     return (a_xy.contiguous(), a_xz.contiguous(), a_zy.contiguous(),
             w2blk.contiguous(), w3t.contiguous())
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` does: add half a TF32 step to the magnitude
+    bits of the int32 view and clear the 13 bits that TF32 drops."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """hi = rna_tf32(x) and lo = rna_tf32(x - hi); hi + lo keeps about 21 bits of x."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def field_grid_split_tf32_reference(a_xy, a_xz, a_zy, w2blk, w3t, radius: float,
+                                    bias_r: float):
+    """The kernel's arithmetic in plain PyTorch, on ``_prep``'s outputs.
+
+    What ``csrc/field_grid.cu`` computes per grid point: h1 = relu((a_xy + a_xz)
+    + a_zy) in f32; for each net's 64 columns, h1 and its diagonal block of W2
+    split into TF32 hi and lo, and h2 = relu((h1_lo W2_hi + h1_hi W2_lo) +
+    h1_hi W2_hi) with f32 sums; the heads and the sphere bias in f32, the world
+    coordinates as -radius + i * step. Only the order of the f32 sums differs
+    from the kernel's. No main path calls it: it holds the split-TF32 numerics
+    against the JAX package on the CPU and the kernel against them on the card.
+    Returns (sdf [R, R, R], deform [3, R, R, R]).
+    """
+    R = a_xy.shape[0]
+    dev = a_xy.device
+    f32 = torch.float32
+    step = torch.tensor(2.0 * radius / (R - 1) if R > 1 else 0.0, dtype=f32, device=dev)
+    world = torch.tensor(-radius, dtype=f32, device=dev) + torch.arange(R, device=dev,
+                                                                        dtype=f32) * step
+    w2 = [_tf32_split(w2blk[b * 64:(b + 1) * 64, b * 64:(b + 1) * 64]) for b in range(2)]
+    sdf = torch.empty((R, R, R), device=dev, dtype=f32)
+    deform = torch.empty((3, R, R, R), device=dev, dtype=f32)
+    slab = max(1, (1 << 28) // (R * R * _H * 4))  # x-values a pass: ~256 MB of h1
+    for x0 in range(0, R, slab):
+        xs = slice(x0, x0 + slab)
+        h1 = torch.relu((a_xy[xs, :, None] + a_xz[xs, None, :]) + a_zy[None])  # [S, y, z, H]
+        S = h1.shape[0]
+        h2 = []
+        for b, (w_hi, w_lo) in enumerate(w2):
+            a_hi, a_lo = _tf32_split(h1[..., b * 64:(b + 1) * 64].reshape(-1, 64))
+            h2.append(torch.relu((a_lo @ w_hi + a_hi @ w_lo) + a_hi @ w_hi))
+        wx = world[xs].view(S, 1, 1)
+        sphere = torch.sqrt(wx * wx + world.view(1, R, 1) ** 2 + world.view(1, 1, R) ** 2)
+        sdf[xs] = (h2[0] @ w3t[0, :64]).view(S, R, R) + sphere - bias_r
+        deform[:, xs] = (h2[1] @ w3t[1:4, 64:].T).T.reshape(3, S, R, R)
+    return sdf, deform
 
 
 def _launch(a_xy, a_xz, a_zy, w2blk, w3t, radius: float, bias_r: float):

@@ -326,15 +326,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Dispatch ``[B, L, H, D]`` attention with the JAX package's gate.
+    """Dispatch ``[B, L, H, D]`` attention to the kernels or the einsum path.
 
-    The kernel takes ``D % 64 == 0 and L >= 128``; the rest runs the einsum
-    path, whose softmax is taken in f32 and cast to q's type before the product
-    with v (``attention_pallas.py:309-319``), and which autograd differentiates.
+    The kernels take ``D in _HEAD_DIMS and L >= 128``. The JAX package's gate
+    is ``D % 64 == 0 and L >= 128``, but the kernels here are built for the
+    head sizes the shipped configs use and ``_check`` refuses any other D, so a
+    D = 128 or 256 (a VAE whose last block has that many channels, its
+    attention being single-head) takes the einsum path, the JAX package's own
+    non-kernel route. That path takes its softmax in f32 and casts it to q's
+    type before the product with v (``attention_pallas.py:309-319``), and
+    autograd differentiates it.
     """
     B, L, H, D = q.shape
     Lk = k.shape[1]
-    if D % 64 == 0 and L >= 128:
+    if D in _HEAD_DIMS and L >= 128:
         qf = q.transpose(1, 2).reshape(B * H, L, D).contiguous()
         kf = k.transpose(1, 2).reshape(B * H, Lk, D).contiguous()
         vf = v.transpose(1, 2).reshape(B * H, Lk, D).contiguous()
