@@ -55,7 +55,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (program B-G) and the guarded Adan update on the card (kernels), with
                and without gradient checkpointing, against the CPU (plain versions)
                from the same weights, latent, noise, timestep, text states and
-               space-cache cotangent.
+               space-cache cotangent; and its program B-R "1st" (R = 16, 2 prompts x 2
+               views at 64², the hash-grid background) on the card against the CPU
+               from the same weights, cameras, space cache and image cotangents:
+               images, the space-cache cotangent and every field and background
+               gradient.
 6. pipeline -- prompt -> textured mesh at full width (SD-2.1 student UNet, OpenCLIP-H
                text tower, retrofitted VAE, R=160 marching cubes) in bf16 on random
                weights from a seed: one warm-up prompt and three timed prompts through
@@ -63,15 +67,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
                after, an exported OBJ, then one more ``__call__`` prompt under
                ``torch.profiler``: device-busy ms of each stage (the pipeline's
                ``record_function`` ranges), the idle share and the heaviest kernels.
-7. training -- the student's training backward at full width, two prompts, bf16,
-               R=160: steps of four parts, each part the no-grad generator forward,
-               the mesh branch (field grid -> grad shrink -> empty-field fallback ->
-               marching cubes) differentiated from a seeded vertex cotangent back to
-               the space cache and the field MLPs, and program B-G; then the update.
-               The seeded cotangents stand in for the rasterizer, the volume renderer
-               and the teachers, which are not ported yet, and seeded text states for
-               the prompt processor. Launch counts of all five kernels are asserted
-               for every part; one more part runs under ``torch.profiler``.
+7. training -- the student's training step at full width as far as it is ported, the
+               v1 recipe: two prompts x four views from the port's data module (seed 0),
+               bf16 frozen backbone, f32 trainables, R=160, 512² renders, the hash-grid
+               background (c_dim 1024). Steps of four parts, each part program R
+               (no-grad generator forward and the mesh-rasterize render), seeded image
+               cotangents in place of the teachers (program G), program B-R "1st"
+               (render forward and backward from the detached space cache: the field
+               MLPs', the background's and the space cache's gradients), and program
+               B-G with B-R's space-cache cotangent plus a seeded x1e-3 one in place of
+               the volume branch's; then the update. Launch counts of all five kernels
+               are asserted for every part; one more part runs under
+               ``torch.profiler`` (device-busy ms of each program's range). Then the
+               ``rasterize`` line: CUDA-event ms of one 512² view of the full-width mesh,
+               the select pass (culling, binning, winners; no grad) and the
+               differentiable recompute (forward and backward) apart.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Float32 matmuls and cuDNN convolutions run
@@ -154,8 +164,12 @@ TOL = {("flash_attn_fwd", "float32"): 1e-4, ("flash_attn_fwd", "bfloat16"): 1e-2
        ("field_grid_split", "float32"): 2e-6}
 TIMED_PROMPTS = 3
 STAGES = ("text_encoder", "denoise", "vae_decode", "field_grid", "marching_cubes", "colorize")
-TRAIN_STAGES = ("generator_forward", "mesh_branch", "generator_backward")
+TRAIN_STAGES = ("generator_forward", "render_1st", "render_backward_1st", "generator_backward")
 TRAIN_STEPS = 3  # one warm-up step and two timed ones, four parts each
+# seeded cotangents standing in for what is not ported: the teachers' image gradients
+# (program G) and the volume branch's space-cache gradient (program B-R "2nd")
+IMAGE_COT_SCALE = 1e-3
+SPACE_COT_SCALE = 1e-3
 
 
 def emit(obj) -> None:
@@ -808,10 +822,55 @@ def phase_pipeline():
     return launches
 
 
+# The small model's first renderer: R = 16 keeps the chance that the field grid's
+# kernel and the plain field put a grid point on opposite sides of the surface (which
+# moves faces, not rounding) near 0.1 % a mesh; 2 prompts x 2 views at 64².
+SMALL_RENDER = dict(isosurface_resolution=16, max_verts=4096, max_faces=8192, field_chunk=4096)
+SMALL_VIEWS, SMALL_HW = 2, 64
+
+
+def _small_render_inputs(gen):
+    """Cameras from the port's data module, a seeded space cache, pooled text states and
+    image cotangents for the small model's program B-R."""
+    import torch
+    from triplaneturbo_torch.data.multiview_multiprompt import (
+        DataModuleConfig,
+        MultiviewMultipromptDataModule,
+    )
+
+    dm = MultiviewMultipromptDataModule(DataModuleConfig(
+        batch_size=2 * SMALL_VIEWS, n_view=SMALL_VIEWS, height=SMALL_HW, width=SMALL_HW,
+        ray_height=16, ray_width=16, n_steps=1), seed=0)
+    batch = {k: v for k, v in dm.sample_train_batch()[0].items() if k != "noise"}
+    plane = SMALL_KW["latent_resolution"] * 2 ** (len(SMALL_SG["vae_block_out_channels"]) - 1)
+    cache = torch.randn((2, 6, plane, plane, SMALL_SG["output_dim"] // 2), generator=gen) * 0.2
+    text = torch.randn((2, SMALL_SG["cross_attention_dim"]), generator=gen)
+    shapes = {"comp_rgb_1st": 3, "comp_normal_cam_vis_1st": 3, "disparity_1st": 1}
+    grads = {k: torch.randn((2 * SMALL_VIEWS, SMALL_HW, SMALL_HW, c), generator=gen)
+             for k, c in shapes.items()}
+    return batch, cache, text, grads
+
+
+def _rel(got, ref, what: str) -> float:
+    """max |got - ref| / max |ref|, with ``got`` (from the card) required finite."""
+    import torch
+
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    check(bool(torch.isfinite(got).all()), f"non-finite {what} on the card")
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-12)).item()
+
+
 def phase_train_reference():
     """The small model's generator backward and update: card (kernels, with and
-    without gradient checkpointing) against the CPU (plain versions), f32."""
+    without gradient checkpointing) against the CPU (plain versions), f32; and its
+    program B-R "1st" on the card against the CPU."""
     import torch
+    from triplaneturbo_torch.data.multiview_multiprompt import MultiviewMultipromptDataModule
+    from triplaneturbo_torch.models.background.hashgrid_env_map import (
+        HashgridBackgroundConfig,
+        HyperNetConfig,
+    )
+    from triplaneturbo_torch.models.renderers.rasterize_renderer import RasterizeRendererConfig
     from triplaneturbo_torch.ops import field_grid as fg
     from triplaneturbo_torch.ops import flash_attention as fa
     from triplaneturbo_torch.systems.trainer import TrainerConfig, TriplaneTurboTrainer
@@ -819,7 +878,10 @@ def phase_train_reference():
     def build(device, checkpoint):
         return TriplaneTurboTrainer.build(
             TrainerConfig(), seed=0, device=device,
-            space_generator_overrides=dict(SMALL_SG, gradient_checkpoint=checkpoint))
+            space_generator_overrides=dict(SMALL_SG, gradient_checkpoint=checkpoint),
+            background_cfg=HashgridBackgroundConfig(
+                hypernet=HyperNetConfig(c_dim=SMALL_SG["cross_attention_dim"])),
+            renderer_cfg=RasterizeRendererConfig(**SMALL_RENDER))
 
     trainers = {"cpu": build("cpu", False), "cuda": build("cuda", False),
                 "cuda_checkpoint": build("cuda", True)}
@@ -830,9 +892,50 @@ def phase_train_reference():
         for n, p in trainers["cpu"].geometry.named_parameters():
             if n.endswith(".up") or ".up." in n:
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
-    state = trainers["cpu"].geometry.state_dict()
     for name in ("cuda", "cuda_checkpoint"):
-        trainers[name].geometry.load_state_dict(state)
+        trainers[name].geometry.load_state_dict(trainers["cpu"].geometry.state_dict())
+        trainers[name].background.load_state_dict(trainers["cpu"].background.state_dict())
+
+    # program B-R "1st" from the same space cache, before any update
+    batch, cache, text_global, grad_images = _small_render_inputs(gen)
+    scalars = trainers["cpu"].host_scalars()
+    br, renders, launches_br = {}, {}, {}
+    for name in ("cpu", "cuda"):
+        tr = trainers[name]
+        dev = tr.schedule.betas.device
+        b = MultiviewMultipromptDataModule.to_device(batch, dev)
+        te = {"global_21": text_global.to(dev)}
+        fg.LAUNCHES = 0
+        with torch.no_grad():
+            renders[name], _ = tr._render_branch(b, cache.to(dev), scalars, te["global_21"], "1st")
+        br[name] = tr._stage_student_render(b, cache.to(dev), te, scalars,
+                                            {k: v.to(dev) for k, v in grad_images.items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches_br[name] = fg.LAUNCHES
+    check(launches_br == {"cpu": 0, "cuda": 4},
+          f"train_reference: field-grid launches in R and B-R {launches_br}, expected 0 and 4")
+    topology = all(torch.equal(a.t_pos_idx.cpu(), b.t_pos_idx) and torch.equal(a.t_mask.cpu(), b.t_mask)
+                   for a, b in zip(renders["cuda"]["mesh"], renders["cpu"]["mesh"]))
+    check(topology, "train_reference: the card's and the CPU's meshes differ in their faces")
+    br_row = {"images": {}, "grads": {}}
+    for k in ("comp_rgb", "comp_normal_cam_vis", "disparity", "opacity", "depth"):
+        br_row["images"][k] = _rel(renders["cuda"][k], renders["cpu"][k], k)
+    (g_cuda, gs_cuda, regu_cuda), (g_cpu, gs_cpu, regu_cpu) = br["cuda"], br["cpu"]
+    check(bool(gs_cpu.any()), "train_reference: zero CPU space-cache cotangent from B-R")
+    br_row["g_space_1st"] = _rel(gs_cuda, gs_cpu, "g_space_1st")
+    for n, ref in g_cpu.items():
+        if n.startswith(("field.", "background.")):
+            check(bool(ref.any()), f"train_reference: zero CPU B-R gradient for {n}")
+            br_row["grads"][n] = _rel(g_cuda[n], ref, n)
+        else:
+            check(not bool(g_cuda[n].any()), f"train_reference: B-R reached {n}")
+    worst_br = max([br_row["g_space_1st"], *br_row["images"].values(), *br_row["grads"].values()])
+    check(worst_br <= SMALL_REL_TOL, f"train_reference: B-R card against CPU rel err {worst_br}: "
+          f"{br_row}")
+    br_row["faces"] = [int(m.t_mask.sum()) for m in renders["cpu"]["mesh"]]
+    del br, renders
+
     r = SMALL_KW["latent_resolution"]
     latent = torch.randn((2, 6, r, r, 4), generator=gen)
     noise = torch.randn((2, 6, r, r, 4), generator=gen)
@@ -871,8 +974,10 @@ def phase_train_reference():
         "flash_attn_bwd_dq": n_sites + 5, "flash_attn_bwd_dkdv": n_sites + 5},
         f"train_reference: checkpointed launches {launches['cuda_checkpoint']}, plain {n_sites}")
 
-    row = {"phase": "train_reference", "what": "small model, program B-G + guarded Adan update, "
-           "card (kernels) vs CPU (plain), f32", "rel_tol": SMALL_REL_TOL, "launches": launches,
+    row = {"phase": "train_reference", "what": "small model, program B-R \"1st\" (R=16, 2x2 "
+           "views at 64²), program B-G + guarded Adan update, card (kernels) vs CPU (plain), f32",
+           "rel_tol": SMALL_REL_TOL, "render_backward_1st": br_row,
+           "render_backward_1st_worst_rel_err": worst_br, "launches": launches,
            "leaves": len(grads["cpu"])}
     lr = trainers["cpu"].cfg.learning_rate
     for name in ("cuda", "cuda_checkpoint"):
@@ -882,7 +987,7 @@ def phase_train_reference():
             got = grads[name][n]
             check(bool(torch.isfinite(got).all()), f"train_reference: non-finite gradient {n}")
             scale = ref.abs().max().clamp_min(1e-12)
-            if n.startswith("field."):
+            if n.startswith(("field.", "background.")):
                 check(not bool(got.any()) and not bool(ref.any()),
                       f"train_reference: the generator backward reached {n}")
                 continue
@@ -908,47 +1013,92 @@ def phase_train_reference():
     torch.cuda.empty_cache()
 
 
-def _training_part(trainer, latent, t, text, scalars, gen, R, counts_expected=None):
+def _training_part(trainer, batch, latent, t, text, scalars, gen):
     """One denoise part of the staged step, as far as it is ported.
 
-    The no-grad generator forward (program R's first half), the mesh branch's
-    isosurface differentiated from a seeded vertex cotangent (the stand-in for the
-    rasterizer and the teachers), and program B-G with that cotangent plus a seeded
-    one in place of the volume branch's. Returns the next latent and the part's
-    gradients for every trainable leaf.
+    Program R (no-grad generator forward, the first render), seeded image cotangents
+    in place of program G, program B-R "1st" (field MLP and background gradients, and
+    the space-cache cotangent), and program B-G with that cotangent plus a seeded one
+    in place of the volume branch's. Returns the next latent, the part's gradients for
+    every trainable leaf, and what the checks read.
     """
     import torch
-    from torch.profiler import record_function
-    from triplaneturbo_torch.systems.trainer import mesh_branch_isosurface
 
-    noise = torch.randn(latent.shape, generator=gen, device=latent.device)
-    with record_function("generator_forward"), torch.no_grad():
-        denoised, space_cache = trainer._denoise_decode(latent, t, text, noise)
-    with record_function("mesh_branch"):
-        sc = space_cache.detach().requires_grad_()
-        meshes = mesh_branch_isosurface(trainer.geometry, sc, R, scalars["sdf_grad_shrink"],
-                                        scalars["def_grad_shrink"])
-        verts = torch.stack([m.verts for m in meshes])
-        mask = torch.stack([m.vert_mask for m in meshes])
-        cot = torch.randn(verts.shape, generator=gen, device=verts.device) * mask[..., None]
-        field = {n: p for n, p in trainer.params_train.items() if n.startswith("field.")}
-        g = torch.autograd.grad(verts, [sc, *field.values()], cot, allow_unused=True)
-        g_space_1st = g[0]
-        n_verts = [int(m.n_verts) for m in meshes]
-    with record_function("generator_backward"):
-        g_space_2nd = torch.randn(sc.shape, generator=gen, device=sc.device) * 1e-3
-        grads = trainer._stage_student_space(latent, t, text, g_space_1st, g_space_2nd, noise)
-    for (n, p), gf in zip(field.items(), g[1:]):
-        if gf is not None:
-            grads[n] = grads[n] + gf
-    return denoised.detach(), grads, n_verts
+    def seeded(x, scale):
+        return torch.randn(x.shape, generator=gen, device=x.device) * scale
+
+    noise = seeded(latent, 1.0)
+    denoised, space_cache, images, overflow = trainer._stage_render(batch, latent, t, text,
+                                                                    scalars, noise)
+    grad_images = {k: seeded(v, IMAGE_COT_SCALE) for k, v in images.items()}
+    grads, g_space_1st, regu = trainer._stage_student_render(batch, space_cache, text, scalars,
+                                                             grad_images, branch="1st")
+    grads_g = trainer._stage_student_space(latent, t, text, g_space_1st,
+                                           seeded(space_cache, SPACE_COT_SCALE), noise)
+    for n, g in grads_g.items():
+        grads[n].add_(g)
+    info = {"images": images, "overflow": overflow, "space_cache": space_cache,
+            "g_space_1st_abs_max": g_space_1st.abs().max(),
+            "g_space_1st_finite": torch.isfinite(g_space_1st).all()}
+    return denoised.detach(), grads, info
+
+
+def phase_rasterize(trainer, batch, space_cache):
+    """CUDA-event ms of one 512² view of the full-width mesh (item 0, view 0): the
+    whole rasterizer without grad, the select pass (culling, binning and winners) and
+    the binning alone, and the differentiable recompute's forward and backward."""
+    import torch
+    from triplaneturbo_torch.ops import rasterize as rz
+
+    cfg = trainer.rasterize_renderer.cfg
+    geo = trainer.geometry
+    with torch.no_grad():
+        mesh = trainer.rasterize_renderer.isosurface(space_cache[:1], geo.forward_field,
+                                                     forward_field_grid=geo.forward_field_grid)[0]
+        vh = torch.cat([mesh.v_pos, torch.ones_like(mesh.v_pos[:, :1])], dim=-1)
+        v_clip = vh @ batch["mvp_mtx"][0].T
+    H = batch["rays_d_rasterize"].shape[1]
+    kw = dict(tile=cfg.tile, faces_per_tile=cfg.faces_per_tile, max_span=cfg.max_span)
+    tri = rz._screen(v_clip, mesh.t_pos_idx, H, H)
+    won = rz._winners(*tri, mesh.t_mask, H, H, cfg.tile, cfg.faces_per_tile, cfg.max_span, 128, 0)
+    fid, hit, n_span, n_list = won
+    vc = v_clip.detach().requires_grad_()
+
+    def recompute():
+        out = rz._recompute(*rz._screen(vc, mesh.t_pos_idx, H, H), *won)
+        torch.autograd.grad(out.bary.sum() + out.edge_dist.sum() + out.depth[out.mask].sum(), vc)
+
+    def binning():
+        valid = mesh.t_mask & (tri[2] > 0).all(-1)
+        rz._bin_faces(tri[0], valid, H, H, cfg.tile, cfg.faces_per_tile, cfg.max_span)
+
+    with torch.no_grad():
+        whole_ms = cuda_ms(lambda: rz.rasterize(v_clip, mesh.t_pos_idx, mesh.t_mask, H, H, **kw), 5)
+        select_ms = cuda_ms(lambda: rz._winners(*tri, mesh.t_mask, H, H, cfg.tile,
+                                                cfg.faces_per_tile, cfg.max_span, 128, 0), 5)
+        bin_ms = cuda_ms(binning, 5)
+    recompute_ms = cuda_ms(recompute, 5)
+    row = {"phase": "rasterize", "what": "one 512² view of the full-width mesh (item 0, view 0)",
+           "H": H, "tile": cfg.tile, "faces_per_tile": cfg.faces_per_tile,
+           "max_span": cfg.max_span, "faces": int(mesh.t_mask.sum()),
+           "covered_pixels": int(hit.sum()), "n_span_overflow": int(n_span),
+           "n_list_overflow": int(n_list), "rasterize_no_grad_ms": whole_ms,
+           "select_pass_ms": select_ms, "of_which_binning_ms": bin_ms,
+           "recompute_fwd_bwd_ms": recompute_ms}
+    emit(row)
+    return row
 
 
 def phase_training():
-    """The student's training backward at full width: 2 prompts, bf16, R = 160."""
+    """The student's training step at full width as far as it is ported: 2 prompts x 4
+    views, bf16, R = 160, 512² renders."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as profiler
+    from triplaneturbo_torch.data.multiview_multiprompt import (
+        DataModuleConfig,
+        MultiviewMultipromptDataModule,
+    )
     from triplaneturbo_torch.ops import field_grid as fg
     from triplaneturbo_torch.ops import flash_attention as fa
     from triplaneturbo_torch.systems.trainer import (
@@ -966,19 +1116,25 @@ def phase_training():
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     cfg = trainer.cfg
-    R = 160
+    data = MultiviewMultipromptDataModule(DataModuleConfig(), seed=0)
+    check(data.cfg.batch_size == TRAIN_PROMPTS * data.cfg.n_view
+          and data.cfg.n_steps == cfg.num_parts_training, "training: data module config")
     gen = torch.Generator(device="cuda").manual_seed(7)
-    # seeded text states stand in for the prompt processor (OpenCLIP-H states, 77 x 1024)
-    text = {"cond_local": torch.randn((TRAIN_PROMPTS, 77, 1024), generator=gen, device="cuda")}
+    # seeded text states stand in for the prompt processor (OpenCLIP-H states, 77 x 1024,
+    # and the pooled state the background's hypernetwork reads)
+    text = {"cond_local": torch.randn((TRAIN_PROMPTS, 77, 1024), generator=gen, device="cuda"),
+            "global_21": torch.randn((TRAIN_PROMPTS, 1024), generator=gen, device="cuda")}
     # kept on the host, so that the copy does not count in the peak device memory
-    before = {n: p.detach().cpu() for n, p in trainer.geometry.named_parameters()}
+    named = {**dict(trainer.geometry.named_parameters()),
+             **{f"background.{n}": p for n, p in trainer.background.named_parameters()}}
+    before = {n: p.detach().cpu() for n, p in named.items()}
 
-    # launches a part: the no-grad forward takes the plain forward kernel once per site;
-    # B-G takes the stats forward and both backward kernels once per site; the mesh
-    # branch takes the field-grid kernel once per prompt
+    # launches a part: R's no-grad forward takes the plain forward kernel once per site;
+    # B-G takes the stats forward and both backward kernels once per site; the field grid
+    # runs once per prompt in R and once per prompt in B-R
     expected = {"flash_attn_fwd": FLASH_PER_PASS, "flash_attn_fwd_stats": FLASH_PER_PASS,
                 "flash_attn_bwd_dq": FLASH_PER_PASS, "flash_attn_bwd_dkdv": FLASH_PER_PASS,
-                "field_grid": TRAIN_PROMPTS}
+                "field_grid": 2 * TRAIN_PROMPTS}
 
     def reset_counts():
         fa.LAUNCHES = fa.LAUNCHES_STATS = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKDV = 0
@@ -990,18 +1146,21 @@ def phase_training():
                 "field_grid": fg.LAUNCHES}
 
     totals = dict.fromkeys(expected, 0)
-    part_ms, step_ms, verts_seen = [], [], []
+    part_ms, step_ms, overflow_seen, g_space_max = [], [], [], []
     for step in range(TRAIN_STEPS):
+        data.update_step(trainer.global_step)
+        batch_list = data.sample_train_batch()
         timesteps = sample_timesteps(trainer.all_timesteps, cfg.num_parts_training, trainer.rng)
         scalars = trainer.host_scalars()
-        latent = torch.randn((TRAIN_PROMPTS, 6, 32, 32, 4), generator=gen, device="cuda")
         acc = None
         torch.cuda.synchronize()
         t_step = time.perf_counter()
-        for t in timesteps:
+        latent = torch.from_numpy(batch_list[0]["noise"]).to("cuda")
+        for host_batch, t in zip(batch_list, timesteps):
             reset_counts()
             t_part = time.perf_counter()
-            latent, grads, n_verts = _training_part(trainer, latent, int(t), text, scalars, gen, R)
+            batch = data.to_device(host_batch, "cuda")
+            latent, grads, info = _training_part(trainer, batch, latent, int(t), text, scalars, gen)
             torch.cuda.synchronize()
             part_ms.append((time.perf_counter() - t_part) * 1e3)
             counts = read_counts()
@@ -1011,7 +1170,14 @@ def phase_training():
                 totals[k_] += v_
             for n, g in grads.items():
                 check(bool(torch.isfinite(g).all()), f"training: non-finite gradient {n}")
-            verts_seen.append(n_verts)
+            check(bool(info["g_space_1st_finite"]) and float(info["g_space_1st_abs_max"]) > 0,
+                  f"training step {step} t={t}: g_space_1st not finite or zero")
+            for k_, img in info["images"].items():
+                c = 1 if k_.startswith("disparity") else 3
+                check(tuple(img.shape) == (TRAIN_PROMPTS * 4, 512, 512, c), f"{k_} shape")
+                check(bool(torch.isfinite(img).all()), f"training: non-finite {k_}")
+            overflow_seen.append({k_: v_.tolist() for k_, v_ in info["overflow"].items()})
+            g_space_max.append(float(info["g_space_1st_abs_max"]))
             acc = trainer.accumulate(acc, grads)
             del grads
         check(trainer._stage_update(acc), f"training step {step}: the update was skipped")
@@ -1021,26 +1187,34 @@ def phase_training():
     peak_bytes = torch.cuda.max_memory_allocated()
 
     check(trainer.optimizer.total_notfinite == 0, "training: a gradient batch was not finite")
-    changed = {n for n, p in trainer.geometry.named_parameters()
-               if not torch.equal(p.detach().cpu(), before[n])}
+    changed = {n for n, p in named.items() if not torch.equal(p.detach().cpu(), before[n])}
     check(changed <= set(trainer.trainable), "training: a frozen leaf changed: "
           f"{sorted(changed - set(trainer.trainable))[:5]}")
     ups = [n for n in trainer.trainable if n.endswith(".up") or n.endswith(".up.weight")]
     check(len(ups) > 100 and all(n in changed for n in ups),
           f"training: adapter up leaves unchanged: {[n for n in ups if n not in changed][:5]}")
+    bg = [n for n in trainer.trainable if n.startswith("background.")]
+    check(len(bg) == 6 and all(n in changed for n in bg),
+          f"training: background leaves unchanged: {[n for n in bg if n not in changed]}")
+    fields = [n for n in trainer.trainable if n.startswith("field.")]
+    check(all(n in changed for n in fields),
+          f"training: field leaves unchanged: {[n for n in fields if n not in changed]}")
     for n, p in trainer.params_train.items():
         check(bool(torch.isfinite(p).all()), f"training: non-finite parameter {n}")
     del before
 
     # one more part under the profiler: device-busy ms by stage, and the heaviest device ops
     scalars = trainer.host_scalars()
-    latent = torch.randn((TRAIN_PROMPTS, 6, 32, 32, 4), generator=gen, device="cuda")
+    batch_list = data.sample_train_batch()
+    batch = data.to_device(batch_list[0], "cuda")
+    latent = torch.from_numpy(batch_list[0]["noise"]).to("cuda")
     with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _training_part(trainer, latent, 999, text, scalars, gen, R)
+        _, _, info = _training_part(trainer, batch, latent, 999, text, scalars, gen)
         torch.cuda.synchronize()
     busy_ms, stage_busy_ms, spanned, top = _profile_split(prof, TRAIN_STAGES, top=12)
     check(busy_ms > 0, "the profiler recorded no device time in the training part")
     check(spanned == sorted(TRAIN_STAGES), f"training stages with a device span: {spanned}")
+    stage_share = sum(stage_busy_ms.values()) / busy_ms
     kernel_busy_ms = {name: sum(e.self_device_time_total for e in prof.key_averages()
                                 if symbol in e.key) / 1e3
                       for name, symbol in (("flash_attn_fwd(+stats)", "flash_fwd_kernel"),
@@ -1050,12 +1224,17 @@ def phase_training():
     timed_parts = part_ms[cfg.num_parts_training:]
     timed_steps = step_ms[1:]
     median_part = sorted(timed_parts)[len(timed_parts) // 2]
-    emit({"phase": "training", "config": "SD-2.1 student UNet + retrofit VAE (output_dim 64) + "
-          "field MLPs, 2 prompts, latents 2x6x32x32x4, R=160, bf16 frozen backbone, f32 "
-          "adapters, random weights seed 0, no gradient checkpointing",
-          "stand_ins": "seeded vertex cotangent for the rasterizer and teachers, seeded "
-          "space-cache cotangent (x1e-3) for the volume branch, seeded text states for the "
+    images = {k: {"min": float(v.min()), "max": float(v.max()), "mean": float(v.float().mean())}
+              for k, v in info["images"].items()}
+    emit({"phase": "training", "config": "v1 recipe: SD-2.1 student UNet + retrofit VAE "
+          "(output_dim 64) + field MLPs + hash-grid background (c_dim 1024, 8 x 2 levels, "
+          "T = 2^19), 2 prompts x 4 views from the port's data module (seed 0), latents "
+          "2x6x32x32x4, R=160, 512² renders, bf16 frozen backbone, f32 trainables, random "
+          "weights seed 0, no gradient checkpointing",
+          "stand_ins": "seeded image cotangents for the teachers, seeded x1e-3 space-cache "
+          "cotangent for the volume branch, seeded text and pooled-text states for the "
           "prompt processor",
+          "image_cotangent_scale": IMAGE_COT_SCALE, "space_cotangent_scale": SPACE_COT_SCALE,
           "trainable_leaves": len(trainer.trainable),
           "trainable_params": sum(p.numel() for p in trainer.params_train.values()),
           "build_s": build_s, "steps": TRAIN_STEPS, "parts_per_step": cfg.num_parts_training,
@@ -1063,10 +1242,14 @@ def phase_training():
           "part_ms_median": median_part,
           "part_device_busy_ms": busy_ms,
           "part_device_idle_share": max(0.0, 1.0 - busy_ms / median_part),
-          "stage_device_busy_ms": stage_busy_ms, "kernel_device_busy_ms": kernel_busy_ms,
+          "stage_device_busy_ms": stage_busy_ms, "stage_device_busy_share": stage_share,
+          "kernel_device_busy_ms": kernel_busy_ms,
           "top_kernels": top, "launches_per_part": expected, "launches": totals,
-          "verts_per_item": verts_seen[-1], "total_notfinite": trainer.optimizer.total_notfinite,
+          "overflow_per_view": overflow_seen, "g_space_1st_abs_max": g_space_max,
+          "images_last_part": images, "total_notfinite": trainer.optimizer.total_notfinite,
           "changed_leaves": len(changed), "max_memory_allocated_bytes": peak_bytes})
+    check(stage_share >= 0.95, f"the stage ranges hold only {stage_share:.3f} of the device time")
+    phase_rasterize(trainer, batch, info["space_cache"])
     return totals
 
 

@@ -396,3 +396,80 @@ def test_field_grid_kernel_is_the_same_from_run_to_run(cuda):
     a = fg._launch(*prepped, 1.0, 0.5)
     b = fg._launch(*prepped, 1.0, 0.5)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# -- the first renderer's plain PyTorch operations on the card -------------------------
+# index_add (the gathers' backward) is atomic on the card and sums in another order, so
+# gradients are held to 1e-4 of their largest value, not bit for bit.
+
+
+def _mc_view(H=128):
+    """A marching-cubes mesh at R = 32 and one training camera's clip-space vertices."""
+    from triplaneturbo_torch.ops.isosurface import extract_isosurface
+    from triplaneturbo_torch.utils.camera import camera_rig_np
+
+    rng = np.random.default_rng(0)
+    g = np.linspace(-1, 1, 32, dtype=np.float32)
+    X, Y, Z = np.meshgrid(g, g, g, indexing="ij")
+    sdf = np.sqrt(X ** 2 + (1.2 * Y) ** 2 + Z ** 2) - 0.55 + 0.05 * rng.normal(size=X.shape)
+    m = extract_isosurface(torch.tensor(sdf.astype(np.float32)), method="mc", max_verts=16384,
+                           max_faces=32768)
+    verts = m.verts * 2 - 1
+    mvp = torch.tensor(camera_rig_np([20.0], [30.0], 2.0, 50.0, 1.0, 0.1, 100.0)[0])
+    clip = torch.cat([verts, torch.ones_like(verts[:, :1])], -1) @ mvp.T
+    return clip, m.faces, m.face_mask, H
+
+
+def test_rasterizer_on_the_card_matches_the_cpu(cuda):
+    from triplaneturbo_torch.ops import rasterize as rz
+
+    clip, faces, fmask, H = _mc_view()
+    rng = np.random.default_rng(1)
+    attr = torch.tensor(rng.normal(size=(clip.shape[0], 3)).astype(np.float32))
+    bg = torch.tensor(rng.uniform(size=(H, H, 3)).astype(np.float32))
+    w = torch.tensor(rng.normal(size=(H, H, 3)).astype(np.float32))
+    kw = dict(tile=16, faces_per_tile=256, max_span=2, select_chunk=64)
+    outs, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        c = clip.to(dev).requires_grad_()
+        o = rz.rasterize(c, faces.to(dev), fmask.to(dev), H, H, **kw)
+        img = rz.antialias(rz.interpolate(attr.to(dev), o, faces.to(dev)), o, bg.to(dev))
+        (grads[dev],) = torch.autograd.grad((img * w.to(dev)).sum(), c)
+        outs[dev] = o
+    a, b = outs["cuda"], outs["cpu"]
+    assert int(b.mask.sum()) > 2000
+    # every operation is elementwise in the same order on both, so the winners agree
+    assert torch.equal(a.face_id.cpu(), b.face_id)
+    for name in ("bary", "depth", "edge_dist"):
+        assert (getattr(a, name).cpu() - getattr(b, name)).abs().max().item() <= 1e-5, name
+    assert int(a.n_list_overflow) == int(b.n_list_overflow)
+    assert int(a.n_span_overflow) == int(b.n_span_overflow)
+    ref = grads["cpu"]
+    assert ref.abs().max() > 0
+    assert (grads["cuda"].cpu() - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_hashgrid_and_background_on_the_card_match_the_cpu(cuda):
+    from triplaneturbo_torch.models.background.hashgrid_env_map import (
+        HashgridEnvironmentMapBackground,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    bgs = {"cpu": HashgridEnvironmentMapBackground()}
+    with torch.no_grad():
+        for p in bgs["cpu"].parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+    bgs["cuda"] = HashgridEnvironmentMapBackground().to("cuda")
+    bgs["cuda"].load_state_dict(bgs["cpu"].state_dict())
+    dirs = torch.nn.functional.normalize(torch.randn(4, 64, 64, 3, generator=gen), dim=-1)
+    text = torch.randn(2, 1024, generator=gen)
+    w = torch.randn(4, 64, 64, 3, generator=gen)
+    outs, grads = {}, {}
+    for dev, bg in bgs.items():
+        out = bg(dirs.to(dev), text.to(dev))
+        grads[dev] = torch.autograd.grad((out * w.to(dev)).sum(), list(bg.parameters()))
+        outs[dev] = out
+    assert (outs["cuda"].cpu() - outs["cpu"]).abs().max().item() <= 1e-5
+    for (name, _), a, b in zip(bgs["cpu"].named_parameters(), grads["cuda"], grads["cpu"]):
+        assert b.abs().max() > 0, name
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * b.abs().max().item(), name

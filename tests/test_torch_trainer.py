@@ -5,11 +5,13 @@ Adan update (``_stage_update``), on the tiny config.
 The JAX side runs the JAX trainer's own methods on a stand-in that carries
 only what those methods read (geometry, schedule, config, optimizer): the
 full trainer also builds the renderers and three teachers, which this slice
-does not reach. Both packages get the same weights (the flax tree bridged
+does not reach. Both packages get the same weights (the flax trees bridged
 into the port, every adapter ``up`` leaf nonzero so that every adapter
-gradient is), the same latent, timestep, text states and space-cache
-cotangents, and the same noise: the JAX side draws it from ``k_noise`` inside
-``_denoise_decode``, and the test reproduces that array for the port.
+gradient is; a small hash-grid background, which the trainable partition
+holds and B-G does not reach), the same latent, timestep, text states and
+space-cache cotangents, and the same noise: the JAX side draws it from
+``k_noise`` inside ``_denoise_decode``, and the test reproduces that array
+for the port.
 """
 
 from types import SimpleNamespace
@@ -21,6 +23,11 @@ import pytest
 import torch
 
 from triplaneturbo_tpu.models import schedulers as jsched
+from triplaneturbo_tpu.models.background.hashgrid_env_map import (
+    HashgridBackgroundConfig as JaxBackgroundConfig,
+    HashgridEnvironmentMapBackground as JaxBackground,
+    HyperNetConfig as JaxHyperNetConfig,
+)
 from triplaneturbo_tpu.models.geometry.space_generator import (
     SpaceGeneratorConfig as JaxSpaceGeneratorConfig,
 )
@@ -29,6 +36,7 @@ from triplaneturbo_tpu.models.geometry.triplane_geometry import (
     TriplaneGeometryConfig as JaxTriplaneGeometryConfig,
     trainable_mask,
 )
+from triplaneturbo_tpu.ops.hashgrid import HashGridConfig as JaxHashGridConfig
 from triplaneturbo_tpu.systems.optimizers import guarded_adan as j_guarded_adan
 from triplaneturbo_tpu.systems.trainer import (
     LossConfig as JaxLossConfig,
@@ -37,17 +45,26 @@ from triplaneturbo_tpu.systems.trainer import (
     combine_params,
     split_params,
 )
+from triplaneturbo_torch.models.background.hashgrid_env_map import (
+    HashgridBackgroundConfig,
+    HashgridEnvironmentMapBackground,
+    HyperNetConfig,
+)
 from triplaneturbo_torch.models.geometry.space_generator import SpaceGeneratorConfig
 from triplaneturbo_torch.models.geometry.triplane_geometry import (
     TriplaneGeometry,
     TriplaneGeometryConfig,
 )
 from triplaneturbo_torch.models.schedulers import SchedulerConfig, make_schedule
+from triplaneturbo_torch.ops.hashgrid import HashGridConfig
+from triplaneturbo_torch.models.renderers.rasterize_renderer import (
+    GenerativeSpaceMeshRasterizeRenderer as TorchRenderer,
+    RasterizeRendererConfig as TorchRendererConfig,
+)
 from triplaneturbo_torch.systems.trainer import (
     LossConfig,
     TrainerConfig,
     TriplaneTurboTrainer,
-    mesh_branch_isosurface,
 )
 from triplaneturbo_torch.utils.weights import (
     flax_tree_to_named,
@@ -62,6 +79,7 @@ TINY_SG = dict(
     attention_head_dim=8, vae_block_out_channels=(16, 32), vae_layers_per_block=1,
     output_dim=8, training_type="self_lora_rank_4-cross_lora_rank_4-locon_rank_4",
 )
+TINY_HASH = dict(n_levels=2, log2_hashmap_size=8)
 NUM_PARTS = 2
 B, RES, T_TEXT = 2, 8, 7
 PLANE = RES * 2 ** (len(TINY_SG["vae_block_out_channels"]) - 1)  # the tiny VAE upsamples once
@@ -104,8 +122,14 @@ def _build_pair(gradient_checkpoint=False, prediction_type="epsilon", **opt_kw):
                           jnp.zeros((1, T_TEXT, 32)), jnp.zeros(()), jnp.zeros((1, 4, 3)),
                           method=jgeo.init_all)
     tree = nonzero_adapters(variables, np.random.default_rng(0))
-    # the JAX trainer's parameter tree, of which this slice holds the geometry
-    jparams = {"geometry": jax.tree_util.tree_map(jnp.asarray, tree)}
+    jbg = JaxBackground(JaxBackgroundConfig(encoding=JaxHashGridConfig(**TINY_HASH),
+                                            hypernet=JaxHyperNetConfig(c_dim=32)))
+    bg_tree = jax.tree_util.tree_map(np.asarray, jax.jit(lambda k: jbg.init(
+        k, jnp.zeros((1, 2, 2, 3)), jnp.zeros((1, 32))))(jax.random.PRNGKey(1)))
+    # the JAX trainer's parameter tree, of which this slice holds the geometry and the
+    # background
+    jparams = {"geometry": jax.tree_util.tree_map(jnp.asarray, tree),
+               "background": jax.tree_util.tree_map(jnp.asarray, bg_tree)}
     jcfg = JaxTrainerConfig(num_parts_training=NUM_PARTS, num_steps_training=NUM_PARTS,
                             prediction_type=prediction_type, **opt_kw)
     jstage = _JaxStage(
@@ -115,15 +139,20 @@ def _build_pair(gradient_checkpoint=False, prediction_type="epsilon", **opt_kw):
                           grad_clip_norm=jcfg.grad_clip_norm,
                           accumulation_steps=jcfg.gradient_accumulation_steps,
                           skip_nonfinite=jcfg.skip_nonfinite_grads))
-    train, frozen = split_params(jparams, {"geometry": trainable_mask(jparams["geometry"])})
+    train, frozen = split_params(jparams, {
+        "geometry": trainable_mask(jparams["geometry"]),
+        "background": jax.tree_util.tree_map(lambda _: True, jparams["background"])})
 
     geo = TriplaneGeometry(TriplaneGeometryConfig(space_generator=SpaceGeneratorConfig(
         gradient_checkpoint=gradient_checkpoint, **TINY_SG)))
     load_flax_params(geo, tree["params"])
+    bg = HashgridEnvironmentMapBackground(HashgridBackgroundConfig(
+        encoding=HashGridConfig(**TINY_HASH), hypernet=HyperNetConfig(c_dim=32)))
+    load_flax_params(bg, bg_tree["params"])
     cfg = TrainerConfig(num_parts_training=NUM_PARTS, num_steps_training=NUM_PARTS,
                         prediction_type=prediction_type, **opt_kw)
     trainer = TriplaneTurboTrainer(
-        cfg, geo, make_schedule(SchedulerConfig(prediction_type=prediction_type)))
+        cfg, geo, make_schedule(SchedulerConfig(prediction_type=prediction_type)), background=bg)
     return jstage, train, frozen, trainer
 
 
@@ -142,16 +171,11 @@ def _jax_noise(key, shape):
 
 def _trainable_leaves(tree):
     """name -> array (the port's names and layout) of the non-None leaves of a
-    JAX trainable-partition tree."""
-    dense = jax.tree_util.tree_map(lambda x: np.asarray(x), tree)
-
-    def prune(node):
-        if isinstance(node, dict):
-            out = {k: prune(v) for k, v in node.items() if v is not None}
-            return {k: v for k, v in out.items() if not (isinstance(v, dict) and not v)}
-        return node
-
-    return flax_tree_to_named(prune(dense)["geometry"]["params"])
+    JAX trainable-partition tree; the background's under ``background.``."""
+    dense = _prune_to_numpy(tree)
+    return {**flax_tree_to_named(dense["geometry"]["params"]),
+            **{f"background.{n}": a
+               for n, a in flax_tree_to_named(dense["background"]["params"]).items()}}
 
 
 def _assert_leaves_close(got, want, what):
@@ -224,10 +248,10 @@ def test_stage_student_space_grads_and_two_updates_match(pair):
             want = _trainable_leaves(grads_j)
             _assert_leaves_close(grads_t, want, f"step {step} part {part} gradients")
             if step == 0 and part == 0:
-                # every adapter leaf gets a gradient; the field MLPs, which the
-                # generator does not reach, get zeros on both sides
+                # every adapter leaf gets a gradient; the field MLPs and the
+                # background, which the generator does not reach, get zeros on both sides
                 for name, g in grads_t.items():
-                    reached = not name.startswith("field.")
+                    reached = not name.startswith(("field.", "background."))
                     assert bool(g.abs().max() > 0) == reached, name
             acc_j = grads_j if acc_j is None else jax.tree_util.tree_map(jnp.add, acc_j, grads_j)
             acc_t = trainer.accumulate(acc_t, grads_t)
@@ -304,9 +328,10 @@ def test_host_scalars_and_step_metrics_match():
 
 
 def test_mesh_branch_vertices_and_space_cache_cotangent_match_jax(pair):
-    """The chain that feeds B-G its cotangent on the card: field on the grid ->
-    grad shrink -> empty-field fallback -> marching cubes, differentiated from
-    a vertex cotangent back to the space cache and the field MLPs."""
+    """The isosurface half of the mesh branch (the renderer's ``isosurface``):
+    field on the grid -> grad shrink -> empty-field fallback -> marching cubes,
+    differentiated from a vertex cotangent back to the space cache and the
+    field MLPs."""
     from triplaneturbo_tpu.models.renderers.rasterize_renderer import (
         GenerativeSpaceMeshRasterizeRenderer,
         RasterizeRendererConfig,
@@ -330,14 +355,16 @@ def test_mesh_branch_vertices_and_space_cache_cotangent_match_jax(pair):
     (_, meshes_j), (g_train_j, g_sc_j) = jax.value_and_grad(j_loss, argnums=(0, 1), has_aux=True)(
         train, jnp.asarray(cache))
     sc = torch.tensor(cache).requires_grad_()
-    meshes_t = mesh_branch_isosurface(trainer.geometry, sc, R, 0.01, 0.02, **cap)
+    geo = trainer.geometry
+    meshes_t = TorchRenderer(TorchRendererConfig(isosurface_resolution=R, **cap)).isosurface(
+        sc, geo.forward_field, 0.01, 0.02, forward_field_grid=geo.forward_field_grid)
     for mt, mj in zip(meshes_t, meshes_j):
-        np.testing.assert_array_equal(mt.vert_mask.numpy(), np.asarray(mj.v_mask))
-        np.testing.assert_array_equal(mt.faces.numpy(), np.asarray(mj.t_pos_idx))
-        np.testing.assert_allclose(mt.verts.detach().numpy(), np.asarray(mj.v_pos), atol=1e-5)
-        assert int(mt.n_verts) > 0
+        np.testing.assert_array_equal(mt.v_mask.numpy(), np.asarray(mj.v_mask))
+        np.testing.assert_array_equal(mt.t_pos_idx.numpy(), np.asarray(mj.t_pos_idx))
+        np.testing.assert_allclose(mt.v_pos.detach().numpy(), np.asarray(mj.v_pos), atol=1e-5)
+        assert int(mt.v_mask.sum()) > 0
     field = {n: p for n, p in trainer.params_train.items() if n.startswith("field.")}
-    verts = torch.stack([m.verts for m in meshes_t])
+    verts = torch.stack([m.v_pos for m in meshes_t])
     grads = torch.autograd.grad(verts, [sc, *field.values()], torch.tensor(w), allow_unused=True)
     want_sc = np.asarray(g_sc_j)
     assert np.abs(want_sc).max() > 0
@@ -353,15 +380,20 @@ def test_mesh_branch_vertices_and_space_cache_cotangent_match_jax(pair):
 
 def test_round_trip_of_the_bridge(pair):
     _, train, _, trainer = pair
-    like = _prune_to_numpy(train)["geometry"]["params"]
-    named = flax_tree_to_named(like)
-    assert set(named) == set(trainer.trainable)
-    back = named_to_flax_tree({n: torch.tensor(a) for n, a in named.items()}, like)
-    for (pa, a), (pb, b) in zip(sorted(_leaves(back).items()), sorted(_leaves(like).items())):
-        assert pa == pb and a.shape == b.shape
-        np.testing.assert_array_equal(a, b)
-    with pytest.raises(KeyError):
-        named_to_flax_tree({}, like)
+    dense = _prune_to_numpy(train)
+    named_geo = flax_tree_to_named(dense["geometry"]["params"])
+    named_bg = dict(trainer.background.named_parameters())
+    assert set(named_geo) | {f"background.{n}" for n in named_bg} == set(trainer.trainable)
+    for named, like in ((named_geo, dense["geometry"]["params"]),
+                        (named_bg, dense["background"]["params"])):
+        if named is named_geo:
+            named = {n: torch.tensor(a) for n, a in named.items()}
+        back = named_to_flax_tree(named, like)
+        for (pa, a), (pb, b) in zip(sorted(_leaves(back).items()), sorted(_leaves(like).items())):
+            assert pa == pb and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+        with pytest.raises(KeyError):
+            named_to_flax_tree({}, like)
 
 
 def _prune_to_numpy(tree):
@@ -391,9 +423,17 @@ def test_trainer_builds_on_cuda_by_default_and_leaves_the_rest_unported():
         TrainerConfig(num_parts_training=NUM_PARTS, num_steps_training=NUM_PARTS),
         space_generator_overrides=TINY_SG, device="cpu")
     assert all(not bool(p.any()) for n, p in trainer.params_train.items() if n.endswith(".up"))
-    for call in (trainer.train_step, trainer._stage_render, trainer._stage_teacher,
-                 trainer._stage_student_render):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            call([], {}, None)
+    assert {n for n in trainer.trainable if n.startswith("background.")} == {
+        f"background.{n}" for n, _ in trainer.background.named_parameters()}
+    assert all(p.device.type == "cpu" and bool(torch.isfinite(p).all())
+               for p in trainer.params_train.values())
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(b\)-\(d\)"):
+        trainer.train_step([], {}, None)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(c\)"):
+        trainer._stage_teacher([], {}, None)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(b\)"):
+        trainer._render_branch({}, None, {}, None, "2nd")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(b\)"):
+        trainer._stage_student_render({}, None, {}, {}, {}, branch="2nd")
     with pytest.raises(ValueError):
         trainer._stage_update({})

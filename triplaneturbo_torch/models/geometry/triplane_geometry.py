@@ -63,6 +63,11 @@ class TriplaneGeometry(nn.Module):
         planes = self.space_generator.decode(latents)
         return decode_space_cache(planes, self.cfg.split_channels)
 
+    def forward_field(self, points, space_cache):
+        """SDF and deformation at points [B, N, 3]: the renderer's fallback
+        where no grid path is given."""
+        return self.field.forward_field(points, space_cache)
+
     def forward_field_grid(self, space_cache, resolution: int):
         return self.field.forward_field_grid(space_cache, resolution)
 

@@ -8,17 +8,18 @@ program per branch (B-R "1st" mesh, "2nd" volume) and ONE generator backward
 cotangents and returns the adapter gradients; ``_stage_update`` then applies
 guarded Adan to the accumulated gradients.
 
-Ported here: B-G and the update, with what they stand on (``_denoise_decode``,
-the timestep strata, the host-side schedules, the step metrics), and the
-isosurface half of the mesh branch (:func:`mesh_branch_isosurface`), through
-which a vertex cotangent reaches the space cache and the field MLPs. The
-render, teacher and render-backward programs and ``train_step`` itself wait
-for the renderers and teachers and raise ``NotImplementedError`` until then.
+Ported here: program R and program B-R for the first (mesh rasterize) branch,
+with the hash-grid background, the material and the renderer the trainer
+owns; B-G and the update, with what they stand on (``_denoise_decode``, the
+timestep strata, the host-side schedules, the step metrics). The volume
+branch, the teachers and ``train_step`` itself raise ``NotImplementedError``
+until they are ported (ROADMAP A9 (b)-(d)).
 
 PyTorch runs eagerly, so a "program" is a method; gradients travel as
 dictionaries keyed by parameter name, the counterpart of the JAX trainable
-partition. Noise is an explicit argument: the render and the backward
-programs of a part must see the same draw.
+partition: the geometry's trainable names as they are, the background's
+under ``background.``. Noise is an explicit argument: the render and the
+backward programs of a part must see the same draw.
 """
 
 from __future__ import annotations
@@ -28,12 +29,22 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from ..models.background.hashgrid_env_map import (
+    HashgridBackgroundConfig,
+    HashgridEnvironmentMapBackground,
+)
 from ..models.geometry.space_generator import SpaceGeneratorConfig
 from ..models.geometry.triplane_geometry import (
     TriplaneGeometry,
     TriplaneGeometryConfig,
     mark_trainable,
+)
+from ..models.materials.no_material import NoMaterial
+from ..models.renderers.rasterize_renderer import (
+    GenerativeSpaceMeshRasterizeRenderer,
+    RasterizeRendererConfig,
 )
 from ..models.schedulers import (
     Schedule,
@@ -44,8 +55,7 @@ from ..models.schedulers import (
     make_schedule,
     pred_original,
 )
-from ..ops.isosurface import ExtractedMesh, extract_isosurface, force_field_crossing
-from ..utils.schedule import C
+from ..utils.schedule import C, schedule_is_zero
 from ..utils.weights import init_random_
 from .optimizers import GuardedAdan
 
@@ -112,52 +122,35 @@ class TrainerConfig:
     def_grad_shrink: Any = 0.001
 
 
-def mesh_branch_isosurface(geometry: TriplaneGeometry, space_cache: torch.Tensor,
-                           resolution: int, sdf_grad_shrink: float, def_grad_shrink: float,
-                           method: str = "mc", max_verts: int = 98304,
-                           max_faces: int = 196608) -> List[ExtractedMesh]:
-    """One fixed-capacity mesh per space-cache item, differentiable in its
-    vertex positions: the isosurface half of the mesh-rasterize renderer
-    (``rasterize_renderer.py:71-135``).
-
-    Field on the dense grid, gradient damping (value unchanged, gradient
-    scaled by the shrink), the empty-field fallback, marching cubes. Vertices
-    come in world coordinates [-1, 1] and carry gradients to the space cache
-    and to the sdf and deformation MLPs.
-    """
-    R = resolution
-    deformable = geometry.cfg.isosurface_deformable_grid
-    meshes = []
-    for i in range(space_cache.shape[0]):
-        sdf, deform = geometry.forward_field_grid(space_cache[i:i + 1], R)
-        sdf = sdf.reshape(-1)
-        if deform is None:
-            deform = torch.zeros((R ** 3, 3), dtype=sdf.dtype, device=sdf.device)
-        sdf = sdf_grad_shrink * sdf + (1.0 - sdf_grad_shrink) * sdf.detach()
-        deform = def_grad_shrink * deform + (1.0 - def_grad_shrink) * deform.detach()
-        sdf = force_field_crossing(sdf, R)
-        m = extract_isosurface(sdf.reshape(R, R, R),
-                               deform.reshape(R, R, R, 3) if deformable else None,
-                               method=method, max_verts=max_verts, max_faces=max_faces)
-        meshes.append(m._replace(verts=m.verts * 2.0 - 1.0))
-    return meshes
-
-
 class TriplaneTurboTrainer:
-    """Owns the geometry module, the optimizer, ``global_step`` and the
-    training timesteps; runs the generator backward and the update."""
+    """Owns the geometry, the background, the material, the rasterize
+    renderer, the optimizer, ``global_step`` and the training timesteps; runs
+    programs R and B-R "1st", the generator backward and the update."""
 
-    def __init__(self, cfg: TrainerConfig, geometry: TriplaneGeometry, schedule: Schedule):
+    _GUIDANCE_IMAGE_KEYS = ("comp_rgb", "comp_normal_cam_vis", "disparity")
+
+    def __init__(self, cfg: TrainerConfig, geometry: TriplaneGeometry, schedule: Schedule,
+                 background: Optional[HashgridEnvironmentMapBackground] = None,
+                 rasterize_renderer: Optional[GenerativeSpaceMeshRasterizeRenderer] = None):
         self.cfg = cfg
         self.geometry = geometry
         self.schedule = schedule
+        if background is None:
+            background = HashgridEnvironmentMapBackground().to(schedule.betas.device)
+        self.background = background
+        self.rasterize_renderer = rasterize_renderer or GenerativeSpaceMeshRasterizeRenderer()
+        self.material_fn = NoMaterial()
         self.global_step = 0
         self.rng = np.random.RandomState(0)
-        # the optimizer sees only the trainable partition; frozen leaves are
+        # the optimizer sees only the trainable partition: the geometry's
+        # adapters and field MLPs, and every background leaf; frozen leaves are
         # never differentiated
-        self.trainable: List[str] = mark_trainable(geometry)
         named = dict(geometry.named_parameters())
-        self.params_train: Dict[str, torch.nn.Parameter] = {n: named[n] for n in self.trainable}
+        self.params_train: Dict[str, torch.nn.Parameter] = {
+            n: named[n] for n in mark_trainable(geometry)}
+        for n, p in self.background.named_parameters():
+            self.params_train[f"background.{n}"] = p.requires_grad_(True)
+        self.trainable: List[str] = list(self.params_train)
         self.optimizer = GuardedAdan(
             self.params_train.values(), cfg.learning_rate, cfg.adan_betas, cfg.adan_eps,
             grad_clip_norm=cfg.grad_clip_norm,
@@ -170,12 +163,15 @@ class TriplaneTurboTrainer:
     @classmethod
     def build(cls, cfg: Optional[TrainerConfig] = None, seed: int = 0,
               space_generator_overrides: Optional[Dict[str, Any]] = None,
-              device: Union[str, torch.device] = "cuda") -> "TriplaneTurboTrainer":
+              device: Union[str, torch.device] = "cuda",
+              background_cfg: Optional[HashgridBackgroundConfig] = None,
+              renderer_cfg: Optional[RasterizeRendererConfig] = None) -> "TriplaneTurboTrainer":
         """A trainer on ``device`` with random weights from ``seed``.
 
-        The geometry is built on the meta device and materialised on ``device``,
-        so the full-size model never passes through host memory. Adapter ``up``
-        leaves start at zero, as in the JAX package.
+        The geometry and the background are built on the meta device and
+        materialised on ``device``, so the full-size model never passes
+        through host memory. Adapter ``up`` leaves start at zero, as in the
+        JAX package.
         """
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -185,11 +181,16 @@ class TriplaneTurboTrainer:
             space_generator=SpaceGeneratorConfig(**(space_generator_overrides or {})))
         with torch.device("meta"):
             geometry = TriplaneGeometry(geometry_cfg)
+            background = HashgridEnvironmentMapBackground(background_cfg)
+        gen = torch.Generator(device=device).manual_seed(seed)
         geometry = geometry.to_empty(device=device)
-        init_random_(geometry, torch.Generator(device=device).manual_seed(seed))
+        init_random_(geometry, gen)
+        background = background.to_empty(device=device)
+        init_random_(background, gen)
         schedule = make_schedule(SchedulerConfig(prediction_type=cfg.prediction_type),
                                  device=device)
-        return cls(cfg, geometry, schedule)
+        return cls(cfg, geometry, schedule, background,
+                   GenerativeSpaceMeshRasterizeRenderer(renderer_cfg))
 
     # ------------------------------------------------------------------
 
@@ -249,10 +250,11 @@ class TriplaneTurboTrainer:
         generator does not reach, such as the field MLPs).
         """
         g_space = (g_space_1st + g_space_2nd).detach()
-        with torch.enable_grad():
-            _, space_cache = self._denoise_decode(latent, t, text_embeds, noise)
         params = list(self.params_train.values())
-        grads = torch.autograd.grad(space_cache, params, grad_outputs=g_space, allow_unused=True)
+        with record_function("generator_backward"), torch.enable_grad():
+            _, space_cache = self._denoise_decode(latent, t, text_embeds, noise)
+            grads = torch.autograd.grad(space_cache, params, grad_outputs=g_space,
+                                        allow_unused=True)
         return {n: torch.zeros_like(p) if g is None else g
                 for (n, p), g in zip(self.params_train.items(), grads)}
 
@@ -273,22 +275,107 @@ class TriplaneTurboTrainer:
             acc[n].add_(g)
         return acc
 
-    # -- programs that wait for the renderers and the teachers -----------------
+    # -- the first renderer: programs R and B-R "1st" ---------------------
 
-    def _stage_render(self, *args, **kwargs):
-        raise NotImplementedError(
-            "program R needs the rasterizer and the volume renderer: ROADMAP A9 (a), (b)")
+    def _render_branch(self, batch: Dict[str, Any], space_cache: torch.Tensor,
+                       scalars: Dict[str, Any], text_global: torch.Tensor, branch: str):
+        """Render "1st" (mesh rasterize) from ``space_cache`` with the current
+        weights; returns (out_1st, None). ``batch`` holds the step-batch's
+        tensors (``MultiviewMultipromptDataModule.to_device``)."""
+        if branch != "1st":
+            raise NotImplementedError(
+                f"branch {branch!r} needs the volume and patch renderers: ROADMAP A9 (b)")
+        geo = self.geometry
+        H = batch["rays_d_rasterize"].shape[1]
+        out_1st = self.rasterize_renderer(
+            batch["mvp_mtx"], batch["camera_positions"], space_cache,
+            geo.forward_field, lambda p, sc: geo.export(p, sc)["features"], self.material_fn,
+            lambda dirs, te: self.background(dirs, te, train=True), H, H,
+            text_embed=text_global, rays_d_rasterize=batch["rays_d_rasterize"],
+            camera_distances=batch["camera_distances"], c2w=batch["c2w"],
+            sdf_grad_shrink=scalars["sdf_grad_shrink"],
+            def_grad_shrink=scalars["def_grad_shrink"],
+            forward_field_grid=geo.forward_field_grid)
+        return out_1st, None
+
+    def _term_on(self, name: str) -> bool:
+        """Static gate: a loss term whose lambda schedule is identically zero
+        is not built at all (a zero cotangent times a NaN partial would still
+        poison the gradients)."""
+        return not schedule_is_zero(getattr(self.cfg.loss, name))
+
+    def _regularizers_1st(self, out_1st: Dict[str, Any], scalars: Dict[str, Any]) -> torch.Tensor:
+        op1 = out_1st["opacity"]
+        loss = op1.new_zeros(())
+        if self._term_on("lambda_sparsity"):
+            loss = loss + scalars["lambda_sparsity"] * torch.sqrt(op1 ** 2 + 0.01).mean()
+        if self._term_on("lambda_opaque"):
+            opc = torch.clamp(op1, 1e-3, 1 - 1e-3)
+            loss = loss + scalars["lambda_opaque"] * (
+                -(opc * torch.log(opc) + (1 - opc) * torch.log(1 - opc))).mean()
+        if "mesh" in out_1st:
+            if self._term_on("lambda_normal_consistency"):
+                nc = torch.stack([m.normal_consistency() for m in out_1st["mesh"]]).mean()
+                loss = loss + scalars["lambda_normal_consistency"] * nc
+            if self._term_on("lambda_laplacian_smoothness"):
+                lap = torch.stack([m.laplacian() for m in out_1st["mesh"]]).mean()
+                loss = loss + scalars["lambda_laplacian_smoothness"] * lap
+        return loss
+
+    def _stage_render(self, batch: Dict[str, Any], latent: torch.Tensor, t,
+                      text_embeds: Dict[str, torch.Tensor], scalars: Dict[str, Any],
+                      noise: torch.Tensor):
+        """Program R, first branch: no-grad generator forward and render.
+
+        Returns (denoised, space_cache, images, overflow): the images the
+        teachers score, keyed ``{comp_rgb, comp_normal_cam_vis, disparity}_1st``,
+        and the rasterizer's overflow counts a view (``n_span_overflow``,
+        ``n_list_overflow``, [B]), which the JAX program does not return. The
+        volume branch's images wait for ROADMAP A9 (b)."""
+        with torch.no_grad():
+            with record_function("generator_forward"):
+                denoised, space_cache = self._denoise_decode(latent, t, text_embeds, noise)
+            with record_function("render_1st"):
+                out_1st, _ = self._render_branch(batch, space_cache, scalars,
+                                                 text_embeds["global_21"], "1st")
+        images = {f"{name}_1st": out_1st[name] for name in self._GUIDANCE_IMAGE_KEYS}
+        overflow = {k: out_1st[k] for k in ("n_span_overflow", "n_list_overflow")}
+        return denoised, space_cache, images, overflow
+
+    def _stage_student_render(self, batch: Dict[str, Any], space_cache: torch.Tensor,
+                              text_embeds: Dict[str, torch.Tensor], scalars: Dict[str, Any],
+                              grad_images: Dict[str, torch.Tensor], branch: str = "1st"):
+        """Program B-R: one renderer's forward and backward from the detached
+        space cache, loss = sum(g * image) over the guidance images plus the
+        branch's regularizers.
+
+        Returns (grads, g_space, regu): a gradient per trainable parameter
+        (the field MLPs and the background; zeros for the adapters, which
+        B-G reaches through ``g_space``), d(loss)/d(space_cache) and the
+        regularizer's value."""
+        if branch != "1st":
+            raise NotImplementedError(
+                f"program B-R {branch!r} needs the volume and patch renderers: ROADMAP A9 (b)")
+        sc = space_cache.detach().requires_grad_()
+        params = list(self.params_train.values())
+        with record_function(f"render_backward_{branch}"), torch.enable_grad():
+            out, _ = self._render_branch(batch, sc, scalars, text_embeds["global_21"], branch)
+            fid_proxy = sum((grad_images[f"{name}_{branch}"].detach() * out[name]).sum()
+                            for name in self._GUIDANCE_IMAGE_KEYS)
+            regu = self._regularizers_1st(out, scalars)
+            g_space, *grads = torch.autograd.grad(fid_proxy + regu, [sc, *params],
+                                                  allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(self.params_train.items(), grads)}
+        return grads, g_space, regu.detach()
+
+    # -- programs that wait for the teachers --------------------------------
 
     def _stage_teacher(self, *args, **kwargs):
         raise NotImplementedError(
             "program G needs the teachers and ASD guidance: ROADMAP A9 (c)")
 
-    def _stage_student_render(self, *args, **kwargs):
-        raise NotImplementedError(
-            "program B-R needs the rasterizer (1st) and the volume renderer (2nd): "
-            "ROADMAP A9 (a), (b)")
-
     def train_step(self, batch_list: Sequence[Dict[str, Any]], text_embeds: Dict[str, Any],
                    generator: torch.Generator):
         raise NotImplementedError(
-            "train_step needs programs R, G and B-R: ROADMAP A9 (a)-(d)")
+            "train_step needs program G, the volume branch and the launcher: ROADMAP A9 (b)-(d)")

@@ -12,7 +12,9 @@ one torch parameter by its last name alone:
 
 The same mapping carries any tree shaped like the parameters (gradients,
 optimizer moments) across, in either direction: :func:`flax_tree_to_named`,
-:func:`named_to_flax_tree`, :func:`load_adan_state`.
+:func:`named_to_flax_tree`, :func:`load_adan_state`. It covers the geometry
+and the hash-grid background alike (``hypernet/fc_in``, ``ln_in``,
+``fc_out``, ``encoding/table``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.background.hashgrid_env_map import LinearHyperNetwork
 from ..models.lora import LoConAdapter, LoRAAdapter, PlaneLoRAAdapter
+from ..ops.hashgrid import HashGridEncoding
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -135,12 +139,22 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     Linear / conv kernels N(0, 1/fan_in) (flax's lecun normal, untruncated),
     biases 0, norms 1 and 0, embeddings N(0, 1), the position embedding
     N(0, 0.01²); LoRA ``down`` N(0, 1)/rank, LoCon ``down`` kaiming uniform,
-    and every adapter ``up`` 0, so fresh adapters add nothing.
+    and every adapter ``up`` 0, so fresh adapters add nothing; the
+    hypernetwork's kernels xavier normal, the hash-grid table uniform in
+    ±1e-4.
     """
     done = set()
     for m in module.modules():
         own = dict(m.named_parameters(recurse=False))
-        if isinstance(m, (LoRAAdapter, PlaneLoRAAdapter)):
+        if isinstance(m, LinearHyperNetwork):
+            for lin in m.children():
+                if isinstance(lin, nn.Linear):
+                    fan_out, fan_in = lin.weight.shape
+                    _normal_(lin.weight, math.sqrt(2.0 / (fan_in + fan_out)), generator)
+                    done.add(id(lin.weight))
+        elif isinstance(m, HashGridEncoding):
+            m.reset_parameters(generator)
+        elif isinstance(m, (LoRAAdapter, PlaneLoRAAdapter)):
             _normal_(m.down, 1.0 / m.rank, generator)
             m.up.zero_()
         elif isinstance(m, LoConAdapter):
