@@ -59,7 +59,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                views at 64², the hash-grid background) on the card against the CPU
                from the same weights, cameras, space cache and image cotangents:
                images, the space-cache cotangent and every field and background
-               gradient.
+               gradient; and its program B-R "2nd" (the patch-wrapped volume renderer,
+               16² rays: a 5² global render and one 8² patch, 32 + 32 samples a ray) on
+               the card against the CPU from the same weights, space cache, cotangents
+               and draws (patch origin, sampler jitter): images, the space-cache
+               cotangent and every field, background and variance gradient.
 6. pipeline -- prompt -> textured mesh at full width (SD-2.1 student UNet, OpenCLIP-H
                text tower, retrofitted VAE, R=160 marching cubes) in bf16 on random
                weights from a seed: one warm-up prompt and three timed prompts through
@@ -69,19 +73,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
                ``record_function`` ranges), the idle share and the heaviest kernels.
 7. training -- the student's training step at full width as far as it is ported, the
                v1 recipe: two prompts x four views from the port's data module (seed 0),
-               bf16 frozen backbone, f32 trainables, R=160, 512² renders, the hash-grid
-               background (c_dim 1024). Steps of four parts, each part program R
-               (no-grad generator forward and the mesh-rasterize render), seeded image
-               cotangents in place of the teachers (program G), program B-R "1st"
-               (render forward and backward from the detached space cache: the field
-               MLPs', the background's and the space cache's gradients), and program
-               B-G with B-R's space-cache cotangent plus a seeded x1e-3 one in place of
-               the volume branch's; then the update. Launch counts of all five kernels
-               are asserted for every part; one more part runs under
-               ``torch.profiler`` (device-busy ms of each program's range). Then the
-               ``rasterize`` line: CUDA-event ms of one 512² view of the full-width mesh,
-               the select pass (culling, binning, winners; no grad) and the
-               differentiable recompute (forward and backward) apart.
+               bf16 frozen backbone, f32 trainables, R=160, 512² mesh renders, 128² rays
+               for the volume renderer (a 42² global render and one 40² patch, 128
+               proposal and 64 fine samples a ray, the variance not trained), the
+               hash-grid background (c_dim 1024), the v1 loss's second-branch sparsity
+               and eikonal terms. Steps of four parts, each part program R (no-grad
+               generator forward and both renders), seeded image cotangents for the six
+               images in place of the teachers (program G), program B-R "1st" and
+               program B-R "2nd" (each render's forward and backward from the detached
+               space cache: the field MLPs', the background's, the variance's and the
+               space cache's gradients; R and B-R "2nd" take the same draws), and
+               program B-G with the two branches' space-cache cotangents; then the
+               update. Launch counts of all five kernels are asserted for every part;
+               one more part runs under ``torch.profiler`` (device-busy ms of each
+               program's range). Then the ``rasterize`` line: CUDA-event ms of one 512²
+               view of the full-width mesh, the select pass (culling, binning, winners;
+               no grad) and the differentiable recompute (forward and backward) apart;
+               and the ``volume`` line: CUDA-event ms of one part's second branch, the
+               proposal pass, the field with normals (program R's form), the whole
+               ``render_2nd`` and ``render_backward_2nd``, with the ray and sample
+               counts, and ``render_backward_2nd``'s time and peak memory at each
+               ``field_chunk`` of a sweep.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Float32 matmuls and cuDNN convolutions run
@@ -164,12 +176,19 @@ TOL = {("flash_attn_fwd", "float32"): 1e-4, ("flash_attn_fwd", "bfloat16"): 1e-2
        ("field_grid_split", "float32"): 2e-6}
 TIMED_PROMPTS = 3
 STAGES = ("text_encoder", "denoise", "vae_decode", "field_grid", "marching_cubes", "colorize")
-TRAIN_STAGES = ("generator_forward", "render_1st", "render_backward_1st", "generator_backward")
+TRAIN_STAGES = ("generator_forward", "render_1st", "render_2nd", "render_backward_1st",
+                "render_backward_2nd", "generator_backward")
 TRAIN_STEPS = 3  # one warm-up step and two timed ones, four parts each
 # seeded cotangents standing in for what is not ported: the teachers' image gradients
-# (program G) and the volume branch's space-cache gradient (program B-R "2nd")
+# (program G)
 IMAGE_COT_SCALE = 1e-3
-SPACE_COT_SCALE = 1e-3
+# the v1 recipe's second-branch loss terms and rgb shrink (configs/triplaneturbo_v1.yaml)
+V1_LOSS = dict(lambda_sparsity_2nd=[0, 1.0, 0.0, 20000], lambda_eikonal_2nd=[0, 1.0, 0.0, 20000])
+V1_RGB_GRAD_SHRINK = [0, 1.0, 0.01, 20000]
+# samples a view that the volume renderer's field with normals takes at once; chosen
+# from the volume line's sweep of render_backward_2nd (PERF.md, section 5)
+FIELD_CHUNK = 65536
+FIELD_CHUNK_SWEEP = (32768, 65536, 131072)
 
 
 def emit(obj) -> None:
@@ -826,7 +845,14 @@ def phase_pipeline():
 # kernel and the plain field put a grid point on opposite sides of the surface (which
 # moves faces, not rounding) near 0.1 % a mesh; 2 prompts x 2 views at 64².
 SMALL_RENDER = dict(isosurface_resolution=16, max_verts=4096, max_faces=8192, field_chunk=4096)
-SMALL_VIEWS, SMALL_HW = 2, 64
+SMALL_VIEWS, SMALL_HW, SMALL_RAYS = 2, 64, 16
+# The small model's second renderer at its 16² rays: a 5² global render and one 8² patch.
+# inv_std starts at e^3, not e^4.6: the NeuS alpha multiplies a sample position's rounding
+# by the SDF's slope and inv_std, and the card and the CPU round the proposal pass's CDF
+# differently in the last bit.
+SMALL_VOLUME = dict(num_samples_per_ray=32, num_samples_per_ray_importance=32,
+                    learned_variance_init=0.3, field_chunk=1000)
+SMALL_PATCH = dict(patch_size=8, global_downsample=3)
 
 
 def _small_render_inputs(gen):
@@ -840,15 +866,23 @@ def _small_render_inputs(gen):
 
     dm = MultiviewMultipromptDataModule(DataModuleConfig(
         batch_size=2 * SMALL_VIEWS, n_view=SMALL_VIEWS, height=SMALL_HW, width=SMALL_HW,
-        ray_height=16, ray_width=16, n_steps=1), seed=0)
+        ray_height=SMALL_RAYS, ray_width=SMALL_RAYS, n_steps=1), seed=0)
     batch = {k: v for k, v in dm.sample_train_batch()[0].items() if k != "noise"}
     plane = SMALL_KW["latent_resolution"] * 2 ** (len(SMALL_SG["vae_block_out_channels"]) - 1)
     cache = torch.randn((2, 6, plane, plane, SMALL_SG["output_dim"] // 2), generator=gen) * 0.2
     text = torch.randn((2, SMALL_SG["cross_attention_dim"]), generator=gen)
-    shapes = {"comp_rgb_1st": 3, "comp_normal_cam_vis_1st": 3, "disparity_1st": 1}
-    grads = {k: torch.randn((2 * SMALL_VIEWS, SMALL_HW, SMALL_HW, c), generator=gen)
-             for k, c in shapes.items()}
+    grads = {f"{k}_{side}": torch.randn((2 * SMALL_VIEWS, hw, hw, c), generator=gen)
+             for k, c in (("comp_rgb", 3), ("comp_normal_cam_vis", 3), ("disparity", 1))
+             for side, hw in (("1st", SMALL_HW), ("2nd", SMALL_RAYS))}
     return batch, cache, text, grads
+
+
+def _draws_to(draws, device):
+    """The second branch's draws with their jitter on ``device``."""
+    from dataclasses import replace
+
+    return replace(draws, jitter_global=tuple(u.to(device) for u in draws.jitter_global),
+                   jitter_patch=tuple(u.to(device) for u in draws.jitter_patch))
 
 
 def _rel(got, ref, what: str) -> float:
@@ -858,6 +892,72 @@ def _rel(got, ref, what: str) -> float:
     got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
     check(bool(torch.isfinite(got).all()), f"non-finite {what} on the card")
     return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-12)).item()
+
+
+def _volume_against_cpu(on_card, on_cpu):
+    """Run ``on_card`` and then ``on_cpu``, the CPU's volume renders taking the card's
+    sample boundaries and the card's downsampled rays: ``importance_sampling`` and the
+    patch renderer's ``resize`` are wrapped so that the card's calls are recorded and the
+    CPU's return the card's results, call for call (a resize that enlarges, of the
+    images, is not replayed).
+
+    The renders are then the same function of the same points on both. The two inputs
+    are held apart, since the renders' derivatives jump where they change: a sample
+    boundary comes from an inverse CDF whose values near 1 are rounded to 6e-8, and one
+    in an interval of little mass moves by that over the mass; the antialiased resize
+    rounds otherwise on the card; and a sample moved by a rounding lands, now and then,
+    across a texel edge or a ReLU kink of the field, where the analytic normal jumps.
+    Returns (card result, CPU result, agreement of the inputs: the share of the CPU's own
+    boundaries within 1e-4 of the card's, the largest difference, and the largest
+    difference of the downsampled rays)."""
+    import torch
+    from triplaneturbo_torch.models.renderers import patch_renderer as pr
+    from triplaneturbo_torch.models.renderers import volume_renderer as vr
+
+    sample, resize = vr.importance_sampling, pr.resize
+    card, cpu_own, card_rays, cpu_rays = [], [], [], []
+
+    def recording(*args, **kwargs):
+        card.append(sample(*args, **kwargs))
+        return card[-1]
+
+    def replaying(*args, **kwargs):
+        cpu_own.append(sample(*args, **kwargs))
+        return tuple(t.cpu() for t in card[len(cpu_own) - 1])
+
+    def recording_rays(x, h, w):
+        out = resize(x, h, w)
+        if h < x.shape[1]:
+            card_rays.append(out)
+        return out
+
+    def replaying_rays(x, h, w):
+        out = resize(x, h, w)
+        if h >= x.shape[1]:
+            return out
+        cpu_rays.append(out)
+        return card_rays[len(cpu_rays) - 1].cpu()
+
+    try:
+        vr.importance_sampling, pr.resize = recording, recording_rays
+        got = on_card()
+        torch.cuda.synchronize()
+        vr.importance_sampling, pr.resize = replaying, replaying_rays
+        ref = on_cpu()
+    finally:
+        vr.importance_sampling, pr.resize = sample, resize
+    check(len(card) == len(cpu_own) > 0 and len(card_rays) == len(cpu_rays) > 0,
+          f"the card sampled {len(card)} and resized {len(card_rays)} times, the CPU "
+          f"{len(cpu_own)} and {len(cpu_rays)}")
+    diffs = torch.cat([(c[0].cpu() - o[0]).abs().flatten() for c, o in zip(card, cpu_own)])
+    agree = {"boundaries": int(diffs.numel()),
+             "share_within_1e-4": float((diffs <= 1e-4).float().mean()),
+             "max_abs_diff": float(diffs.max()),
+             "rays_max_abs_diff": max(float((c.cpu() - o).abs().max())
+                                      for c, o in zip(card_rays, cpu_rays))}
+    check(agree["share_within_1e-4"] >= 0.99 and agree["rays_max_abs_diff"] <= 1e-5,
+          f"the card's and the CPU's samplers or resized rays disagree: {agree}")
+    return got, ref, agree
 
 
 def phase_train_reference():
@@ -870,18 +970,26 @@ def phase_train_reference():
         HashgridBackgroundConfig,
         HyperNetConfig,
     )
+    from triplaneturbo_torch.models.renderers.patch_renderer import PatchRendererConfig
     from triplaneturbo_torch.models.renderers.rasterize_renderer import RasterizeRendererConfig
+    from triplaneturbo_torch.models.renderers.volume_renderer import VolumeRendererConfig
     from triplaneturbo_torch.ops import field_grid as fg
     from triplaneturbo_torch.ops import flash_attention as fa
-    from triplaneturbo_torch.systems.trainer import TrainerConfig, TriplaneTurboTrainer
+    from triplaneturbo_torch.systems.trainer import LossConfig, TrainerConfig, TriplaneTurboTrainer
 
     def build(device, checkpoint):
+        # every second-branch regularizer on, so that B-R "2nd" differentiates them all
+        loss = LossConfig(lambda_sparsity_2nd=0.3, lambda_opaque_2nd=0.2,
+                          lambda_z_variance_2nd=0.5, lambda_eikonal_2nd=0.1,
+                          lambda_orient_2nd=2.0, lambda_sdf_abs=0.4)
         return TriplaneTurboTrainer.build(
-            TrainerConfig(), seed=0, device=device,
+            TrainerConfig(loss=loss), seed=0, device=device,
             space_generator_overrides=dict(SMALL_SG, gradient_checkpoint=checkpoint),
             background_cfg=HashgridBackgroundConfig(
                 hypernet=HyperNetConfig(c_dim=SMALL_SG["cross_attention_dim"])),
-            renderer_cfg=RasterizeRendererConfig(**SMALL_RENDER))
+            renderer_cfg=RasterizeRendererConfig(**SMALL_RENDER),
+            volume_cfg=VolumeRendererConfig(**SMALL_VOLUME),
+            patch_cfg=PatchRendererConfig(**SMALL_PATCH))
 
     trainers = {"cpu": build("cpu", False), "cuda": build("cuda", False),
                 "cuda_checkpoint": build("cuda", True)}
@@ -936,6 +1044,64 @@ def phase_train_reference():
     br_row["faces"] = [int(m.t_mask.sum()) for m in renders["cpu"]["mesh"]]
     del br, renders
 
+    # program B-R "2nd" from the same space cache, cotangents and draws. The CPU renders
+    # at the card's sample boundaries and downsampled rays, which are held on their own:
+    # see _volume_against_cpu
+    draws = trainers["cpu"].draw_volume(MultiviewMultipromptDataModule.to_device(batch, "cpu"),
+                                        torch.Generator().manual_seed(5))
+
+    def run_br2(name, perturb=0.0):
+        tr = trainers[name]
+        dev = tr.schedule.betas.device
+        b = MultiviewMultipromptDataModule.to_device(batch, dev)
+        if perturb:
+            noise = torch.randn(b["rays_d"].shape, generator=torch.Generator().manual_seed(6))
+            b["rays_d"] = b["rays_d"] * (1 + perturb * noise.to(dev))
+        te = {"global_21": text_global.to(dev)}
+        d = _draws_to(draws, dev)
+        with torch.no_grad():
+            _, render = tr._render_branch(b, cache.to(dev), scalars, te["global_21"], "2nd", d)
+        out = tr._stage_student_render(b, cache.to(dev), te, scalars,
+                                       {k: v.to(dev) for k, v in grad_images.items()},
+                                       branch="2nd", draws=d)
+        return render, out
+
+    fa.LAUNCHES = fa.LAUNCHES_STATS = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKDV = 0
+    fg.LAUNCHES = 0
+    (render_cuda, br2_cuda), (render_cpu, br2_cpu), sampler = _volume_against_cpu(
+        lambda: run_br2("cuda"), lambda: run_br2("cpu"))
+    # the volume branch runs plain PyTorch only: gathers, MLPs, cumulative products
+    launches_br2 = fa.LAUNCHES + fa.LAUNCHES_STATS + fg.LAUNCHES
+    check(launches_br2 == 0, f"train_reference: {launches_br2} kernel launches in R and B-R 2nd")
+    br2_row = {"inputs": sampler, "images": {}, "grads": {}}
+    for k in ("comp_rgb", "comp_normal_cam_vis", "disparity", "opacity", "depth"):
+        br2_row["images"][k] = _rel(render_cuda[k], render_cpu[k], k)
+    (g_cuda, gs_cuda, regu_cuda), (g_cpu, gs_cpu, regu_cpu) = br2_cuda, br2_cpu
+    check(bool(gs_cpu.any()), "train_reference: zero CPU space-cache cotangent from B-R 2nd")
+    br2_row["g_space_2nd"] = _rel(gs_cuda, gs_cpu, "g_space_2nd")
+    br2_row["regu"] = [float(regu_cuda), float(regu_cpu)]
+    br2_row["regu_rel_err"] = abs(float(regu_cuda) - float(regu_cpu)) / abs(float(regu_cpu))
+    for n, ref in g_cpu.items():
+        if n.startswith(("field.", "background.", "renderer.")) and "deformation" not in n:
+            check(bool(ref.any()), f"train_reference: zero CPU B-R 2nd gradient for {n}")
+            br2_row["grads"][n] = _rel(g_cuda[n], ref, n)
+        else:
+            check(not bool(g_cuda[n].any()), f"train_reference: B-R 2nd reached {n}")
+    worst_br2 = max([br2_row["g_space_2nd"], br2_row["regu_rel_err"],
+                     *br2_row["images"].values(), *br2_row["grads"].values()])
+    check(worst_br2 <= SMALL_REL_TOL, f"train_reference: B-R 2nd card against CPU rel err "
+          f"{worst_br2}: {br2_row}")
+    br2_row["opacity_range"] = [float(render_cpu["opacity"].min()),
+                                float(render_cpu["opacity"].max())]
+    # why the inputs are replayed: the outputs and gradients on the card with the ray
+    # directions moved by 3e-7 of themselves (samples drawn anew), against the above
+    render_p, (g_p, gs_p, _) = run_br2("cuda", perturb=3e-7)
+    br2_row["rays_moved_3e-7_on_the_card_rel_err"] = max(
+        [_rel(gs_p, gs_cuda, "g_space_2nd"), *[_rel(render_p[k], render_cuda[k], k)
+                                               for k in br2_row["images"]],
+         *[_rel(g_p[n], g_cuda[n], n) for n in br2_row["grads"]]])
+    del br2_cuda, br2_cpu, render_cuda, render_cpu, render_p, g_p, gs_p
+
     r = SMALL_KW["latent_resolution"]
     latent = torch.randn((2, 6, r, r, 4), generator=gen)
     noise = torch.randn((2, 6, r, r, 4), generator=gen)
@@ -975,9 +1141,11 @@ def phase_train_reference():
         f"train_reference: checkpointed launches {launches['cuda_checkpoint']}, plain {n_sites}")
 
     row = {"phase": "train_reference", "what": "small model, program B-R \"1st\" (R=16, 2x2 "
-           "views at 64²), program B-G + guarded Adan update, card (kernels) vs CPU (plain), f32",
+           "views at 64²), program B-R \"2nd\" (16² rays: 5² global, 8² patch, 32 + 32 "
+           "samples), program B-G + guarded Adan update, card (kernels) vs CPU (plain), f32",
            "rel_tol": SMALL_REL_TOL, "render_backward_1st": br_row,
-           "render_backward_1st_worst_rel_err": worst_br, "launches": launches,
+           "render_backward_1st_worst_rel_err": worst_br, "render_backward_2nd": br2_row,
+           "render_backward_2nd_worst_rel_err": worst_br2, "launches": launches,
            "leaves": len(grads["cpu"])}
     lr = trainers["cpu"].cfg.learning_rate
     for name in ("cuda", "cuda_checkpoint"):
@@ -987,7 +1155,7 @@ def phase_train_reference():
             got = grads[name][n]
             check(bool(torch.isfinite(got).all()), f"train_reference: non-finite gradient {n}")
             scale = ref.abs().max().clamp_min(1e-12)
-            if n.startswith(("field.", "background.")):
+            if n.startswith(("field.", "background.", "renderer.")):
                 check(not bool(got.any()) and not bool(ref.any()),
                       f"train_reference: the generator backward reached {n}")
                 continue
@@ -1016,11 +1184,11 @@ def phase_train_reference():
 def _training_part(trainer, batch, latent, t, text, scalars, gen):
     """One denoise part of the staged step, as far as it is ported.
 
-    Program R (no-grad generator forward, the first render), seeded image cotangents
-    in place of program G, program B-R "1st" (field MLP and background gradients, and
-    the space-cache cotangent), and program B-G with that cotangent plus a seeded one
-    in place of the volume branch's. Returns the next latent, the part's gradients for
-    every trainable leaf, and what the checks read.
+    Program R (no-grad generator forward, both renders), seeded image cotangents in
+    place of program G, programs B-R "1st" and "2nd" (field MLP, background and
+    variance gradients, and each branch's space-cache cotangent; "2nd" with R's
+    draws), and program B-G with the two cotangents. Returns the next latent, the
+    part's gradients for every trainable leaf, and what the checks read.
     """
     import torch
 
@@ -1028,18 +1196,22 @@ def _training_part(trainer, batch, latent, t, text, scalars, gen):
         return torch.randn(x.shape, generator=gen, device=x.device) * scale
 
     noise = seeded(latent, 1.0)
+    draws = trainer.draw_volume(batch, gen)
     denoised, space_cache, images, overflow = trainer._stage_render(batch, latent, t, text,
-                                                                    scalars, noise)
+                                                                    scalars, noise, draws)
     grad_images = {k: seeded(v, IMAGE_COT_SCALE) for k, v in images.items()}
-    grads, g_space_1st, regu = trainer._stage_student_render(batch, space_cache, text, scalars,
-                                                             grad_images, branch="1st")
-    grads_g = trainer._stage_student_space(latent, t, text, g_space_1st,
-                                           seeded(space_cache, SPACE_COT_SCALE), noise)
-    for n, g in grads_g.items():
-        grads[n].add_(g)
+    grads, g_space_1st, _ = trainer._stage_student_render(batch, space_cache, text, scalars,
+                                                          grad_images, branch="1st")
+    grads_2nd, g_space_2nd, regu_2nd = trainer._stage_student_render(
+        batch, space_cache, text, scalars, grad_images, branch="2nd", draws=draws)
+    grads_g = trainer._stage_student_space(latent, t, text, g_space_1st, g_space_2nd, noise)
+    for n in grads:
+        grads[n].add_(grads_2nd[n]).add_(grads_g[n])
     info = {"images": images, "overflow": overflow, "space_cache": space_cache,
             "g_space_1st_abs_max": g_space_1st.abs().max(),
-            "g_space_1st_finite": torch.isfinite(g_space_1st).all()}
+            "g_space_1st_finite": torch.isfinite(g_space_1st).all(),
+            "g_space_2nd_abs_max": g_space_2nd.abs().max(),
+            "g_space_2nd_finite": torch.isfinite(g_space_2nd).all(), "regu_2nd": regu_2nd}
     return denoised.detach(), grads, info
 
 
@@ -1099,9 +1271,11 @@ def phase_training():
         DataModuleConfig,
         MultiviewMultipromptDataModule,
     )
+    from triplaneturbo_torch.models.renderers.volume_renderer import VolumeRendererConfig
     from triplaneturbo_torch.ops import field_grid as fg
     from triplaneturbo_torch.ops import flash_attention as fa
     from triplaneturbo_torch.systems.trainer import (
+        LossConfig,
         TrainerConfig,
         TriplaneTurboTrainer,
         sample_timesteps,
@@ -1111,8 +1285,9 @@ def phase_training():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = TriplaneTurboTrainer.build(
-        TrainerConfig(), seed=0, device="cuda",
-        space_generator_overrides=dict(dtype_str="bfloat16"))
+        TrainerConfig(loss=LossConfig(**V1_LOSS), rgb_grad_shrink=V1_RGB_GRAD_SHRINK), seed=0,
+        device="cuda", space_generator_overrides=dict(dtype_str="bfloat16"),
+        volume_cfg=VolumeRendererConfig(trainable_variance=False, field_chunk=FIELD_CHUNK))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     cfg = trainer.cfg
@@ -1126,7 +1301,8 @@ def phase_training():
             "global_21": torch.randn((TRAIN_PROMPTS, 1024), generator=gen, device="cuda")}
     # kept on the host, so that the copy does not count in the peak device memory
     named = {**dict(trainer.geometry.named_parameters()),
-             **{f"background.{n}": p for n, p in trainer.background.named_parameters()}}
+             **{f"background.{n}": p for n, p in trainer.background.named_parameters()},
+             **{f"renderer.{n}": p for n, p in trainer.volume_renderer.named_parameters()}}
     before = {n: p.detach().cpu() for n, p in named.items()}
 
     # launches a part: R's no-grad forward takes the plain forward kernel once per site;
@@ -1146,7 +1322,7 @@ def phase_training():
                 "field_grid": fg.LAUNCHES}
 
     totals = dict.fromkeys(expected, 0)
-    part_ms, step_ms, overflow_seen, g_space_max = [], [], [], []
+    part_ms, step_ms, overflow_seen, g_space_max, regu_2nd = [], [], [], [], []
     for step in range(TRAIN_STEPS):
         data.update_step(trainer.global_step)
         batch_list = data.sample_train_batch()
@@ -1170,14 +1346,21 @@ def phase_training():
                 totals[k_] += v_
             for n, g in grads.items():
                 check(bool(torch.isfinite(g).all()), f"training: non-finite gradient {n}")
-            check(bool(info["g_space_1st_finite"]) and float(info["g_space_1st_abs_max"]) > 0,
-                  f"training step {step} t={t}: g_space_1st not finite or zero")
+            for side in ("1st", "2nd"):
+                check(bool(info[f"g_space_{side}_finite"])
+                      and float(info[f"g_space_{side}_abs_max"]) > 0,
+                      f"training step {step} t={t}: g_space_{side} not finite or zero")
+            check(bool(torch.isfinite(info["regu_2nd"])), f"training step {step} t={t}: "
+                  f"regu of the 2nd branch {float(info['regu_2nd'])}")
             for k_, img in info["images"].items():
                 c = 1 if k_.startswith("disparity") else 3
-                check(tuple(img.shape) == (TRAIN_PROMPTS * 4, 512, 512, c), f"{k_} shape")
+                hw = 512 if k_.endswith("_1st") else data.cfg.ray_height
+                check(tuple(img.shape) == (TRAIN_PROMPTS * 4, hw, hw, c), f"{k_} shape")
                 check(bool(torch.isfinite(img).all()), f"training: non-finite {k_}")
             overflow_seen.append({k_: v_.tolist() for k_, v_ in info["overflow"].items()})
-            g_space_max.append(float(info["g_space_1st_abs_max"]))
+            g_space_max.append([float(info["g_space_1st_abs_max"]),
+                                float(info["g_space_2nd_abs_max"])])
+            regu_2nd.append(float(info["regu_2nd"]))
             acc = trainer.accumulate(acc, grads)
             del grads
         check(trainer._stage_update(acc), f"training step {step}: the update was skipped")
@@ -1199,6 +1382,10 @@ def phase_training():
     fields = [n for n in trainer.trainable if n.startswith("field.")]
     check(all(n in changed for n in fields),
           f"training: field leaves unchanged: {[n for n in fields if n not in changed]}")
+    # trainable_variance: false detaches the variance in the render: a zero gradient, no move
+    check("renderer.variance_inv_std" in trainer.trainable
+          and "renderer.variance_inv_std" not in changed,
+          "training: the untrained variance_inv_std changed")
     for n, p in trainer.params_train.items():
         check(bool(torch.isfinite(p).all()), f"training: non-finite parameter {n}")
     del before
@@ -1231,10 +1418,14 @@ def phase_training():
           "T = 2^19), 2 prompts x 4 views from the port's data module (seed 0), latents "
           "2x6x32x32x4, R=160, 512² renders, bf16 frozen backbone, f32 trainables, random "
           "weights seed 0, no gradient checkpointing",
-          "stand_ins": "seeded image cotangents for the teachers, seeded x1e-3 space-cache "
-          "cotangent for the volume branch, seeded text and pooled-text states for the "
-          "prompt processor",
-          "image_cotangent_scale": IMAGE_COT_SCALE, "space_cotangent_scale": SPACE_COT_SCALE,
+          "stand_ins": "seeded image cotangents for the teachers, seeded text and pooled-text "
+          "states for the prompt processor",
+          "volume": {"rays": data.cfg.ray_height, "patch": trainer.patch_cfg.patch_size,
+                     "global_downsample": trainer.patch_cfg.global_downsample,
+                     "samples": [trainer.volume_renderer.cfg.num_samples_per_ray_importance,
+                                 trainer.volume_renderer.cfg.num_samples_per_ray],
+                     "field_chunk": trainer.volume_renderer.cfg.field_chunk},
+          "image_cotangent_scale": IMAGE_COT_SCALE,
           "trainable_leaves": len(trainer.trainable),
           "trainable_params": sum(p.numel() for p in trainer.params_train.values()),
           "build_s": build_s, "steps": TRAIN_STEPS, "parts_per_step": cfg.num_parts_training,
@@ -1245,12 +1436,106 @@ def phase_training():
           "stage_device_busy_ms": stage_busy_ms, "stage_device_busy_share": stage_share,
           "kernel_device_busy_ms": kernel_busy_ms,
           "top_kernels": top, "launches_per_part": expected, "launches": totals,
-          "overflow_per_view": overflow_seen, "g_space_1st_abs_max": g_space_max,
+          "overflow_per_view": overflow_seen, "g_space_abs_max_1st_2nd": g_space_max,
+          "regu_2nd": regu_2nd,
           "images_last_part": images, "total_notfinite": trainer.optimizer.total_notfinite,
           "changed_leaves": len(changed), "max_memory_allocated_bytes": peak_bytes})
     check(stage_share >= 0.95, f"the stage ranges hold only {stage_share:.3f} of the device time")
     phase_rasterize(trainer, batch, info["space_cache"])
+    phase_volume(trainer, batch, info["space_cache"], text, scalars, gen)
     return totals
+
+
+def phase_volume(trainer, batch, space_cache, text, scalars, gen):
+    """CUDA-event ms of one full-width part's second branch: the proposal pass (both
+    base renders' SDF-only density and the sampling), the field with normals at the
+    fine samples as program R evaluates it, the whole ``render_2nd`` and
+    ``render_backward_2nd``; then ``render_backward_2nd``'s time and peak memory at
+    each ``field_chunk`` of the sweep."""
+    from dataclasses import replace
+
+    import torch
+    from triplaneturbo_torch.models.renderers import volume_renderer as vr
+    from triplaneturbo_torch.models.renderers.patch_renderer import resize
+    from triplaneturbo_torch.ops.ray import importance_sampling, neus_density_from_sdf
+
+    vol = trainer.volume_renderer
+    cfg, pcfg = vol.cfg, trainer.patch_cfg
+    draws = trainer.draw_volume(batch, gen)
+    ro, rd = batch["rays_o"], batch["rays_d"]
+    B, H, W, _ = ro.shape
+    ps, gh = pcfg.patch_size, H // pcfg.global_downsample
+    py, px = draws.patch_y, draws.patch_x
+    renders = {"global": (resize(ro, gh, gh), resize(rd, gh, gh), draws.jitter_global),
+               "patch": (ro[:, py:py + ps, px:px + ps], rd[:, py:py + ps, px:px + ps],
+                         draws.jitter_patch)}
+    field_fn = trainer._field_fn_2nd(space_cache, B // space_cache.shape[0])
+    inv_std = torch.clamp(torch.exp(vol.variance_inv_std.detach() * 10.0), 1e-6, 1e6)
+    P, F = cfg.num_samples_per_ray_importance, cfg.num_samples_per_ray
+
+    def proposal():
+        out = []
+        for ro_, rd_, jitter in renders.values():
+            o, d = ro_.reshape(-1, 3), rd_.reshape(-1, 3)
+
+            def density(t0, t1):
+                pts = o[:, None] + d[:, None] * ((t0 + t1) * 0.5)[..., None]
+                sdf = field_fn(pts.reshape(B, -1, 3), "sdf")["sdf"].reshape(o.shape[0], -1)
+                return neus_density_from_sdf(sdf, inv_std, vol.render_step_size)
+
+            t0, t1 = importance_sampling(density, o.shape[0], P, F, cfg.near_plane,
+                                         cfg.far_plane, jitter=jitter, device=ro.device)
+            out.append(o[:, None] + d[:, None] * ((t0 + t1) * 0.5)[..., None])
+        return out
+
+    with torch.no_grad():
+        positions = proposal()
+        proposal_ms = cuda_ms(proposal, 3, warmup=1)
+        field_ms = cuda_ms(lambda: [vr._field_with_normal(field_fn, p.reshape(B, -1, 3),
+                                                           cfg.field_chunk, ())
+                                    for p in positions], 3, warmup=1)
+        render_ms = cuda_ms(lambda: trainer._render_branch(
+            batch, space_cache, scalars, text["global_21"], "2nd", draws), 3, warmup=1)
+    n_rays = {k: int(p.shape[0]) for k, p in zip(renders, positions)}
+    intervals = int(positions[0].shape[1])
+    grad_images = {f"{k}_2nd": torch.randn((B, H, H, c), generator=gen, device=ro.device) * 1e-3
+                   for k, c in (("comp_rgb", 3), ("comp_normal_cam_vis", 3), ("disparity", 1))}
+
+    def backward():
+        return trainer._stage_student_render(batch, space_cache, text, scalars, grad_images,
+                                             branch="2nd", draws=draws)
+
+    sweep = []
+    chosen = cfg.field_chunk
+    try:
+        for chunk in FIELD_CHUNK_SWEEP:
+            trainer.volume_renderer.cfg = replace(cfg, field_chunk=chunk)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            backward()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            sweep.append({"field_chunk": chunk, "points_a_chunk": chunk * B,
+                          "render_backward_2nd_ms": cuda_ms(backward, 2, warmup=0),
+                          "peak_bytes": peak, "peak_above_start_bytes": peak - base})
+    finally:
+        trainer.volume_renderer.cfg = cfg
+    row = {"phase": "volume", "what": "one full-width part's second branch: 2 prompts x 4 "
+           f"views, {H}² rays, a {gh}² global render and one {ps}² patch, {P} proposal and "
+           f"{F} fine samples a ray, field_chunk {chosen}",
+           "rays": n_rays, "intervals_a_ray": intervals,
+           "proposal_points": sum(n * P for n in n_rays.values()),
+           "field_points_with_normals": sum(n * intervals for n in n_rays.values()),
+           "proposal_ms": proposal_ms, "field_with_normals_no_grad_ms": field_ms,
+           "render_2nd_ms": render_ms,
+           "render_backward_2nd_ms": [r for r in sweep if r["field_chunk"] == chosen][0][
+               "render_backward_2nd_ms"],
+           "render_backward_2nd_peak_bytes": [r for r in sweep if r["field_chunk"] == chosen][0][
+               "peak_bytes"],
+           "field_chunk_sweep": sweep}
+    emit(row)
+    return row
 
 
 def kernels_line(rows, serving, training):

@@ -473,3 +473,172 @@ def test_hashgrid_and_background_on_the_card_match_the_cpu(cuda):
     for (name, _), a, b in zip(bgs["cpu"].named_parameters(), grads["cuda"], grads["cpu"]):
         assert b.abs().max() > 0, name
         assert (a.cpu() - b).abs().max().item() <= 1e-4 * b.abs().max().item(), name
+
+
+# -- the second renderer's plain PyTorch operations on the card --------------------------
+# The sampler's boundaries come from inverse CDFs whose values near 1 are rounded to 6e-8,
+# so a boundary in an interval of little mass moves with the last bit; the antialiased
+# resize of the rays rounds otherwise on the card; and a sample moved by a rounding can
+# cross a texel edge or a ReLU kink of the field, where the analytic normal jumps. So the
+# CPU renders at the card's boundaries and downsampled rays, which are held on their own
+# (nearly all boundaries within 1e-4, the rays within 1e-5), and renders and gradients to
+# 1e-4 of their largest value (the gathers' backward is an atomic scatter on the card).
+
+
+def _volume_setup(dev, field_chunk):
+    """A random triplane field on ``dev``, its query as the trainer builds it (one
+    item, views regrouped into one row), rays of two views and draws."""
+    from triplaneturbo_torch.models.geometry.triplane_field import TriplaneField, TriplaneFieldConfig
+    from triplaneturbo_torch.models.renderers.volume_renderer import (
+        GenerativeSpaceSDFVolumeRenderer,
+        VolumeRendererConfig,
+    )
+    from triplaneturbo_torch.utils.camera import camera_to_world, get_ray_directions, get_rays
+    from triplaneturbo_torch.utils.ops import safe_normalize
+
+    gen = torch.Generator().manual_seed(0)
+    field = TriplaneField(TriplaneFieldConfig())
+    with torch.no_grad():
+        for p in field.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) / p.shape[-1] ** 0.5)
+    field = field.to(dev)
+    cache = (torch.randn(1, 6, 24, 24, 32, generator=gen) * 0.03).to(dev).requires_grad_()
+    H = 24
+    c2w = camera_to_world(torch.tensor([0.2, 0.5]), torch.tensor([0.3, 2.1]),
+                          torch.full((2,), 1.9))
+    ro, rd = get_rays(get_ray_directions(H, H, torch.full((2,), 0.8)), c2w)
+
+    def field_fn(points, mode):
+        B, M, _ = points.shape
+        pts = points.reshape(1, B * M, 3)
+        if mode == "sdf":
+            return {"sdf": field.forward_sdf(pts, cache).reshape(B, M, 1)}
+        outer = torch.is_grad_enabled()
+        with torch.enable_grad():
+            p = pts.detach().requires_grad_()
+            out = field(p, cache)
+            (g,) = torch.autograd.grad(out["sdf"].sum(), p, create_graph=outer)
+        out = {k: (v if outer else v.detach()).reshape(B, M, -1) for k, v in out.items()}
+        out["sdf_grad"] = g.reshape(B, M, 3)
+        out["normal"] = safe_normalize(out["sdf_grad"])
+        out["features"] = torch.sigmoid(out["features"])
+        return out
+
+    renderer = GenerativeSpaceSDFVolumeRenderer(VolumeRendererConfig(
+        num_samples_per_ray=32, num_samples_per_ray_importance=32, learned_variance_init=0.3,
+        field_chunk=field_chunk)).to(dev)
+    return field, cache, field_fn, renderer, ro.to(dev), rd.to(dev), c2w.to(dev)
+
+
+@pytest.mark.parametrize("field_chunk", [0, 700])
+def test_volume_and_patch_renderers_on_the_card_match_the_cpu(cuda, field_chunk, monkeypatch):
+    from dataclasses import replace
+
+    from triplaneturbo_torch.models.renderers import patch_renderer as pr
+    from triplaneturbo_torch.models.renderers import volume_renderer as vr
+    from triplaneturbo_torch.models.renderers.patch_renderer import (
+        PatchRenderer,
+        PatchRendererConfig,
+    )
+
+    cfg = PatchRendererConfig(patch_size=10, global_downsample=3)
+    gen = torch.Generator().manual_seed(1)
+    sample, resize = vr.importance_sampling, pr.resize
+    card, cpu_own, card_rays, cpu_rays = [], [], [], []
+
+    def recording(*args, **kwargs):
+        card.append(sample(*args, **kwargs))
+        return card[-1]
+
+    def replaying(*args, **kwargs):
+        cpu_own.append(sample(*args, **kwargs))
+        return tuple(t.cpu() for t in card[len(cpu_own) - 1])
+
+    def recording_rays(x, h, w):  # a resize that shrinks is of the rays
+        out = resize(x, h, w)
+        if h < x.shape[1]:
+            card_rays.append(out)
+        return out
+
+    def replaying_rays(x, h, w):
+        out = resize(x, h, w)
+        if h >= x.shape[1]:
+            return out
+        cpu_rays.append(out)
+        return card_rays[len(cpu_rays) - 1].cpu()
+
+    outs, grads, w, draws = {}, {}, None, None
+    for dev in ("cuda", "cpu"):
+        monkeypatch.setattr(vr, "importance_sampling", recording if dev == "cuda" else replaying)
+        monkeypatch.setattr(pr, "resize", recording_rays if dev == "cuda" else replaying_rays)
+        field, cache, field_fn, renderer, ro, rd, c2w = _volume_setup(dev, field_chunk)
+        if draws is None:
+            draws = PatchRenderer.draw(cfg, gen, 2, 24, 24,
+                                       lambda n: renderer.draw_jitter(n, gen))
+            w = {k: torch.randn((2, 24, 24, c), generator=gen)
+                 for k, c in (("comp_rgb", 3), ("comp_normal_cam_vis", 3), ("disparity", 1))}
+        d = replace(draws, jitter_global=tuple(u.to(dev) for u in draws.jitter_global),
+                    jitter_patch=tuple(u.to(dev) for u in draws.jitter_patch))
+
+        def base(ro_, rd_, jitter=None, train=True):
+            return renderer(ro_, rd_, field_fn, lambda dirs, te: torch.ones_like(dirs) * 0.9,
+                            camera_distances=torch.full((2,), 1.9, device=dev), c2w=c2w,
+                            jitter=jitter, train=train,
+                            field_inputs=[cache, *field.parameters()])
+
+        out = PatchRenderer(cfg, base)(ro, rd, draws=d, train=True)
+        loss = sum((out[k] * w[k].to(dev)).sum() for k in w) + out["eikonal"] + out["orient"]
+        inputs = [cache, renderer.variance_inv_std, *field.parameters()]
+        grads[dev] = torch.autograd.grad(loss, inputs, allow_unused=True)
+        outs[dev] = out
+    assert len(card) == len(cpu_own) == 2 and len(card_rays) == len(cpu_rays) == 2
+    diffs = torch.cat([(c[0].cpu() - o[0]).abs().flatten() for c, o in zip(card, cpu_own)])
+    assert float((diffs <= 1e-4).float().mean()) >= 0.99
+    assert all((c.cpu() - o).abs().max().item() <= 1e-5 for c, o in zip(card_rays, cpu_rays))
+
+    def held(got, ref, what):
+        got, ref = got.detach().cpu(), ref.detach()
+        assert torch.isfinite(got).all(), what
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item(), what
+
+    op = outs["cpu"]["opacity"].detach()
+    assert 0.9 < float(op.max()) and float(op.min()) < 0.1
+    for k, ref in outs["cpu"].items():
+        held(outs["cuda"][k], ref, k)
+    for i, (ga, gb) in enumerate(zip(grads["cuda"], grads["cpu"])):
+        if gb is None:  # the deformation network: the volume branch does not reach it
+            assert ga is None
+            continue
+        assert gb.abs().max() > 0, i
+        held(ga, gb, i)
+
+
+def test_plane_sampler_second_order_gradients_on_the_card(cuda):
+    """The eikonal term differentiates the SDF's input gradient: the gather-based
+    plane sampler taken to the second order, checked by finite differences in
+    float64 on the card, and its eikonal gradient against the CPU's."""
+    from triplaneturbo_torch.ops.grid_sample import grid_sample_2d_packed, pack_2x2
+
+    gen = torch.Generator().manual_seed(3)
+    planes = torch.randn(2, 5, 6, 3, generator=gen, dtype=torch.float64)
+    # points away from the cells' edges, where the sampler is smooth
+    cells = torch.randint(0, 5, (2, 7, 2), generator=gen).double()
+    grid = ((cells + 0.2 + 0.6 * torch.rand(2, 7, 2, generator=gen, dtype=torch.float64)) * 2
+            / torch.tensor([6.0, 5.0], dtype=torch.float64)) - 1
+
+    def sample(pl, g):
+        return grid_sample_2d_packed(pack_2x2(pl), g)
+
+    args = (planes.to("cuda").requires_grad_(), grid.to("cuda").requires_grad_())
+    assert torch.autograd.gradgradcheck(sample, args)
+
+    def eikonal_grad(dev):
+        pl = planes.float().to(dev).requires_grad_()
+        g = grid.float().to(dev).requires_grad_()
+        (dg,) = torch.autograd.grad(sample(pl, g).sum(), g, create_graph=True)
+        (d_pl,) = torch.autograd.grad(((dg.norm(dim=-1) - 1) ** 2).mean(), pl)
+        return d_pl
+
+    ref = eikonal_grad("cpu")
+    assert ref.abs().max() > 0
+    assert (eikonal_grad("cuda").cpu() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()

@@ -58,9 +58,14 @@ from triplaneturbo_torch.models.geometry.triplane_geometry import (
     TriplaneGeometry,
     TriplaneGeometryConfig,
 )
+from triplaneturbo_torch.models.renderers.patch_renderer import PatchRendererConfig
 from triplaneturbo_torch.models.renderers.rasterize_renderer import (
     GenerativeSpaceMeshRasterizeRenderer,
     RasterizeRendererConfig,
+)
+from triplaneturbo_torch.models.renderers.volume_renderer import (
+    GenerativeSpaceSDFVolumeRenderer,
+    VolumeRendererConfig,
 )
 from triplaneturbo_torch.models.schedulers import make_schedule
 from triplaneturbo_torch.ops.hashgrid import HashGridConfig
@@ -127,8 +132,12 @@ def _build(loss):
         encoding=HashGridConfig(**HASH), hypernet=HyperNetConfig(c_dim=C_DIM)))
     load_flax_params(bg, bg_tree)
     renderer = GenerativeSpaceMeshRasterizeRenderer(RasterizeRendererConfig(**RENDER))
+    # the second branch at the 8² rays of these batches: a 2² global render and a 4² patch
+    volume = GenerativeSpaceSDFVolumeRenderer(VolumeRendererConfig(
+        num_samples_per_ray=8, num_samples_per_ray_importance=8))
     trainer = TriplaneTurboTrainer(TrainerConfig(loss=LossConfig(**loss)), geo, make_schedule(),
-                                   background=bg, rasterize_renderer=renderer)
+                                   background=bg, rasterize_renderer=renderer,
+                                   volume_renderer=volume, patch_cfg=PatchRendererConfig(4))
     return jstage, train, frozen, trainer
 
 
@@ -242,15 +251,20 @@ def test_stage_render_is_the_no_grad_render_of_the_decoded_cache(pair):
     latent = torch.tensor(rng.normal(size=(BSC, 6, 8, 8, 4)).astype(np.float32))
     noise = torch.tensor(rng.normal(size=(BSC, 6, 8, 8, 4)).astype(np.float32))
     text["cond_local"] = torch.tensor(rng.normal(size=(BSC, 7, 32)).astype(np.float32))
+    scalars = dict(x["scalars"], rgb_grad_shrink=1.0)
+    draws = trainer.draw_volume(batch, torch.Generator().manual_seed(4))
     denoised, space_cache, images, overflow = trainer._stage_render(
-        batch, latent, 499, text, x["scalars"], noise)
+        batch, latent, 499, text, scalars, noise, draws)
     assert not space_cache.requires_grad and not any(v.requires_grad for v in images.values())
-    assert set(images) == {f"{k}_1st" for k in KEYS}
+    assert set(images) == {f"{k}_{side}" for k in KEYS for side in ("1st", "2nd")}
     with torch.no_grad():
         want_den, want_sc = trainer._denoise_decode(latent, 499, text, noise)
-        out, _ = trainer._render_branch(batch, want_sc, x["scalars"], text["global_21"], "1st")
+        out_1st, out_2nd = trainer._render_branch(batch, want_sc, scalars, text["global_21"],
+                                                  "both", draws)
     assert torch.equal(denoised, want_den) and torch.equal(space_cache, want_sc)
     for k in KEYS:
-        assert torch.equal(images[f"{k}_1st"], out[k]), k
+        assert torch.equal(images[f"{k}_1st"], out_1st[k]), k
+        assert torch.equal(images[f"{k}_2nd"], out_2nd[k]), k
+    assert images["comp_rgb_2nd"].shape == (BSC * NV, 8, 8, 3)
     assert set(overflow) == {"n_span_overflow", "n_list_overflow"}
     assert all(v.shape == (BSC * NV,) for v in overflow.values())

@@ -7,8 +7,9 @@ only what those methods read (geometry, schedule, config, optimizer): the
 full trainer also builds the renderers and three teachers, which this slice
 does not reach. Both packages get the same weights (the flax trees bridged
 into the port, every adapter ``up`` leaf nonzero so that every adapter
-gradient is; a small hash-grid background, which the trainable partition
-holds and B-G does not reach), the same latent, timestep, text states and
+gradient is; a small hash-grid background and the volume renderer's
+variance, which the trainable partition holds and B-G does not reach), the
+same latent, timestep, text states and
 space-cache cotangents, and the same noise: the JAX side draws it from
 ``k_noise`` inside ``_denoise_decode``, and the test reproduces that array
 for the port.
@@ -61,6 +62,7 @@ from triplaneturbo_torch.models.renderers.rasterize_renderer import (
     GenerativeSpaceMeshRasterizeRenderer as TorchRenderer,
     RasterizeRendererConfig as TorchRendererConfig,
 )
+from triplaneturbo_torch.models.renderers.volume_renderer import GenerativeSpaceSDFVolumeRenderer
 from triplaneturbo_torch.systems.trainer import (
     LossConfig,
     TrainerConfig,
@@ -126,10 +128,12 @@ def _build_pair(gradient_checkpoint=False, prediction_type="epsilon", **opt_kw):
                                             hypernet=JaxHyperNetConfig(c_dim=32)))
     bg_tree = jax.tree_util.tree_map(np.asarray, jax.jit(lambda k: jbg.init(
         k, jnp.zeros((1, 2, 2, 3)), jnp.zeros((1, 32))))(jax.random.PRNGKey(1)))
-    # the JAX trainer's parameter tree, of which this slice holds the geometry and the
-    # background
+    # the volume renderer's one leaf, away from its init so that the bridge carries it
+    vol_tree = {"params": {"variance_inv_std": np.float32(0.35)}}
+    # the JAX trainer's parameter tree: the geometry, the background and the renderer
     jparams = {"geometry": jax.tree_util.tree_map(jnp.asarray, tree),
-               "background": jax.tree_util.tree_map(jnp.asarray, bg_tree)}
+               "background": jax.tree_util.tree_map(jnp.asarray, bg_tree),
+               "renderer": jax.tree_util.tree_map(jnp.asarray, vol_tree)}
     jcfg = JaxTrainerConfig(num_parts_training=NUM_PARTS, num_steps_training=NUM_PARTS,
                             prediction_type=prediction_type, **opt_kw)
     jstage = _JaxStage(
@@ -141,7 +145,8 @@ def _build_pair(gradient_checkpoint=False, prediction_type="epsilon", **opt_kw):
                           skip_nonfinite=jcfg.skip_nonfinite_grads))
     train, frozen = split_params(jparams, {
         "geometry": trainable_mask(jparams["geometry"]),
-        "background": jax.tree_util.tree_map(lambda _: True, jparams["background"])})
+        "background": jax.tree_util.tree_map(lambda _: True, jparams["background"]),
+        "renderer": jax.tree_util.tree_map(lambda _: True, jparams["renderer"])})
 
     geo = TriplaneGeometry(TriplaneGeometryConfig(space_generator=SpaceGeneratorConfig(
         gradient_checkpoint=gradient_checkpoint, **TINY_SG)))
@@ -149,10 +154,13 @@ def _build_pair(gradient_checkpoint=False, prediction_type="epsilon", **opt_kw):
     bg = HashgridEnvironmentMapBackground(HashgridBackgroundConfig(
         encoding=HashGridConfig(**TINY_HASH), hypernet=HyperNetConfig(c_dim=32)))
     load_flax_params(bg, bg_tree["params"])
+    vol = GenerativeSpaceSDFVolumeRenderer()
+    load_flax_params(vol, vol_tree["params"])
     cfg = TrainerConfig(num_parts_training=NUM_PARTS, num_steps_training=NUM_PARTS,
                         prediction_type=prediction_type, **opt_kw)
     trainer = TriplaneTurboTrainer(
-        cfg, geo, make_schedule(SchedulerConfig(prediction_type=prediction_type)), background=bg)
+        cfg, geo, make_schedule(SchedulerConfig(prediction_type=prediction_type)), background=bg,
+        volume_renderer=vol)
     return jstage, train, frozen, trainer
 
 
@@ -171,11 +179,12 @@ def _jax_noise(key, shape):
 
 def _trainable_leaves(tree):
     """name -> array (the port's names and layout) of the non-None leaves of a
-    JAX trainable-partition tree; the background's under ``background.``."""
+    JAX trainable-partition tree; the background's under ``background.``, the
+    volume renderer's under ``renderer.``."""
     dense = _prune_to_numpy(tree)
     return {**flax_tree_to_named(dense["geometry"]["params"]),
-            **{f"background.{n}": a
-               for n, a in flax_tree_to_named(dense["background"]["params"]).items()}}
+            **{f"{part}.{n}": a for part in ("background", "renderer")
+               for n, a in flax_tree_to_named(dense[part]["params"]).items()}}
 
 
 def _assert_leaves_close(got, want, what):
@@ -248,10 +257,11 @@ def test_stage_student_space_grads_and_two_updates_match(pair):
             want = _trainable_leaves(grads_j)
             _assert_leaves_close(grads_t, want, f"step {step} part {part} gradients")
             if step == 0 and part == 0:
-                # every adapter leaf gets a gradient; the field MLPs and the
-                # background, which the generator does not reach, get zeros on both sides
+                # every adapter leaf gets a gradient; the field MLPs, the background
+                # and the renderer, which the generator does not reach, get zeros on
+                # both sides
                 for name, g in grads_t.items():
-                    reached = not name.startswith(("field.", "background."))
+                    reached = not name.startswith(("field.", "background.", "renderer."))
                     assert bool(g.abs().max() > 0) == reached, name
             acc_j = grads_j if acc_j is None else jax.tree_util.tree_map(jnp.add, acc_j, grads_j)
             acc_t = trainer.accumulate(acc_t, grads_t)
@@ -383,9 +393,15 @@ def test_round_trip_of_the_bridge(pair):
     dense = _prune_to_numpy(train)
     named_geo = flax_tree_to_named(dense["geometry"]["params"])
     named_bg = dict(trainer.background.named_parameters())
-    assert set(named_geo) | {f"background.{n}" for n in named_bg} == set(trainer.trainable)
+    named_vol = dict(trainer.volume_renderer.named_parameters())
+    assert set(named_vol) == {"variance_inv_std"}
+    v = named_vol["variance_inv_std"].detach()
+    assert v.shape == () and float(v) == np.float32(0.35)
+    assert set(named_geo) | {f"background.{n}" for n in named_bg} | {
+        f"renderer.{n}" for n in named_vol} == set(trainer.trainable)
     for named, like in ((named_geo, dense["geometry"]["params"]),
-                        (named_bg, dense["background"]["params"])):
+                        (named_bg, dense["background"]["params"]),
+                        (named_vol, dense["renderer"]["params"])):
         if named is named_geo:
             named = {n: torch.tensor(a) for n, a in named.items()}
         back = named_to_flax_tree(named, like)
@@ -414,6 +430,19 @@ def _leaves(tree, prefix=""):
     return out
 
 
+def _tiny_batch():
+    from triplaneturbo_torch.data.multiview_multiprompt import (
+        DataModuleConfig,
+        MultiviewMultipromptDataModule,
+    )
+
+    dm = MultiviewMultipromptDataModule(DataModuleConfig(
+        batch_size=B * 2, n_view=2, height=16, width=16, ray_height=64, ray_width=64,
+        n_steps=1), seed=0)
+    return dm.to_device({k: v for k, v in dm.sample_train_batch()[0].items() if k != "noise"},
+                        "cpu")
+
+
 def test_trainer_builds_on_cuda_by_default_and_leaves_the_rest_unported():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -425,15 +454,23 @@ def test_trainer_builds_on_cuda_by_default_and_leaves_the_rest_unported():
     assert all(not bool(p.any()) for n, p in trainer.params_train.items() if n.endswith(".up"))
     assert {n for n in trainer.trainable if n.startswith("background.")} == {
         f"background.{n}" for n, _ in trainer.background.named_parameters()}
+    assert [n for n in trainer.trainable if n.startswith("renderer.")] == [
+        "renderer.variance_inv_std"]
+    np.testing.assert_allclose(float(trainer.params_train["renderer.variance_inv_std"].detach()),
+                               trainer.volume_renderer.cfg.learned_variance_init, rtol=1e-7)
     assert all(p.device.type == "cpu" and bool(torch.isfinite(p).all())
                for p in trainer.params_train.values())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(b\)-\(d\)"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(c\)-\(d\)"):
         trainer.train_step([], {}, None)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(c\)"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(c\)$"):
         trainer._stage_teacher([], {}, None)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(b\)"):
-        trainer._render_branch({}, None, {}, None, "2nd")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(b\)"):
-        trainer._stage_student_render({}, None, {}, {}, {}, branch="2nd")
+    # both renderers run: the second branch needs its draws, and a branch by name
+    with pytest.raises(ValueError, match="draws"):
+        trainer._render_branch(_tiny_batch(), torch.zeros(B, 6, PLANE, PLANE, 4), {
+            "rgb_grad_shrink": 1.0}, torch.zeros(B, 1024), "2nd")
+    with pytest.raises(ValueError, match="unknown branch"):
+        trainer._render_branch({}, None, {}, None, "3rd")
+    with pytest.raises(ValueError, match="one branch"):
+        trainer._stage_student_render({}, torch.zeros(1), {}, {}, {}, branch="both")
     with pytest.raises(ValueError):
         trainer._stage_update({})

@@ -1,18 +1,21 @@
 """Triplane implicit field: plane-sampled features -> SDF / deformation / color.
 
 Counterpart of ``triplaneturbo_tpu/models/geometry/triplane_field.py``
-(inference): ``decode_space_cache`` splits the decoded 6x64-channel planes into
-a geometry and a texture triplane; ``forward_field_grid`` evaluates SDF and
-deformation on the dense marching-cubes grid, through the fused CUDA kernel
-for CUDA tensors and through the plain gather-free expression otherwise;
-``export`` gives the texture features at mesh vertices. Space caches are
-channels-last ``[B, 6, H, W, C]``.
+``decode_space_cache`` splits the decoded 6x64-channel planes into a geometry
+and a texture triplane; ``forward_field_grid`` evaluates SDF and deformation on
+the dense marching-cubes grid, through the fused CUDA kernel for CUDA tensors
+and through the plain gather-free expression otherwise; ``export`` gives the
+texture features at mesh vertices; ``forward_sdf`` and the module call give the
+SDF (and the features) at ray samples, and :func:`analytic_normal` the SDF's
+gradient there through autograd. The plane sampler is built on gathers, so
+autograd takes these to the second order. Space caches are channels-last
+``[B, 6, H, W, C]``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -57,10 +60,13 @@ class TriplaneField(nn.Module):
         if c.isosurface_deformable_grid:
             self.deformation_network = get_mlp(geo_in, 3, c.mlp)
 
-    def rescale_points(self, points: torch.Tensor) -> torch.Tensor:
+    @property
+    def bbox(self) -> torch.Tensor:
         r = self.cfg.radius
-        bbox = torch.tensor([[-r, -r, -r], [r, r, r]], dtype=torch.float32, device=points.device)
-        return contract_to_unisphere(points, bbox, unbounded=False)
+        return torch.tensor([[-r, -r, -r], [r, r, r]], dtype=torch.float32)
+
+    def rescale_points(self, points: torch.Tensor) -> torch.Tensor:
+        return contract_to_unisphere(points, self.bbox.to(points.device), unbounded=False)
 
     def shifted_sdf(self, points_unscaled: torch.Tensor, sdf: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -97,6 +103,19 @@ class TriplaneField(nn.Module):
         if self.cfg.isosurface_deformable_grid:
             deformation = self.deformation_network(enc_geo)
         return sdf, deformation
+
+    def forward_sdf(self, points: torch.Tensor, space_cache: torch.Tensor) -> torch.Tensor:
+        """SDF at points [B, N, 3]: the geometry planes only."""
+        enc_geo = self.interpolate(self.rescale_points(points), space_cache, only_geo=True)
+        return self.shifted_sdf(points, self.sdf_network(enc_geo))
+
+    def forward(self, points: torch.Tensor, space_cache: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """SDF and texture features at points [B, N, 3] (the volume renderer's query)."""
+        enc_geo, enc_tex = self.interpolate(self.rescale_points(points), space_cache)
+        out = {"sdf": self.shifted_sdf(points, self.sdf_network(enc_geo))}
+        if self.cfg.n_feature_dims > 0:
+            out["features"] = self.feature_network(enc_tex)
+        return out
 
     def forward_field_grid(self, space_cache: torch.Tensor, resolution: int
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -157,6 +176,21 @@ class TriplaneField(nn.Module):
             return {}
         _, enc_tex = self.interpolate(self.rescale_points(points), space_cache)
         return {"features": self.feature_network(enc_tex)}
+
+
+def analytic_normal(field_apply: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                    points: torch.Tensor, space_cache: torch.Tensor, normalize: bool = True,
+                    eps: float = 1e-12) -> torch.Tensor:
+    """dSDF/dpoints through autograd; ``field_apply`` (points [B, N, 3],
+    space_cache) -> sdf [B, N, 1]. The graph is kept (``create_graph``) when the
+    caller differentiates further, i.e. when grad mode is on."""
+    outer = torch.is_grad_enabled()
+    with torch.enable_grad():
+        p = points if points.requires_grad else points.detach().requires_grad_()
+        (n,) = torch.autograd.grad(field_apply(p, space_cache).sum(), p, create_graph=outer)
+    if normalize:
+        n = n / torch.sqrt(torch.clamp_min((n * n).sum(-1, keepdim=True), eps))
+    return n
 
 
 def decode_space_cache(triplane: torch.Tensor, split_channels: Optional[str] = "v1"

@@ -71,6 +71,13 @@ class TriplaneGeometry(nn.Module):
     def forward_field_grid(self, space_cache, resolution: int):
         return self.field.forward_field_grid(space_cache, resolution)
 
+    def forward_sdf(self, points, space_cache):
+        return self.field.forward_sdf(points, space_cache)
+
+    def forward(self, points, space_cache):
+        """SDF and texture features at points [B, N, 3]."""
+        return self.field(points, space_cache)
+
     def export(self, points, space_cache):
         return self.field.export(points, space_cache)
 

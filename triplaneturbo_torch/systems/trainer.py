@@ -8,18 +8,22 @@ program per branch (B-R "1st" mesh, "2nd" volume) and ONE generator backward
 cotangents and returns the adapter gradients; ``_stage_update`` then applies
 guarded Adan to the accumulated gradients.
 
-Ported here: program R and program B-R for the first (mesh rasterize) branch,
-with the hash-grid background, the material and the renderer the trainer
-owns; B-G and the update, with what they stand on (``_denoise_decode``, the
-timestep strata, the host-side schedules, the step metrics). The volume
-branch, the teachers and ``train_step`` itself raise ``NotImplementedError``
-until they are ported (ROADMAP A9 (b)-(d)).
+Ported here: program R with both branches, program B-R for the first (mesh
+rasterize) and the second (patch-wrapped NeuS volume) branch, with the
+hash-grid background, the material and the two renderers the trainer owns; B-G
+and the update, with what they stand on (``_denoise_decode``, the timestep
+strata, the host-side schedules, the step metrics). The teachers and
+``train_step`` itself raise ``NotImplementedError`` until they are ported
+(ROADMAP A9 (c)-(d)).
 
 PyTorch runs eagerly, so a "program" is a method; gradients travel as
 dictionaries keyed by parameter name, the counterpart of the JAX trainable
 partition: the geometry's trainable names as they are, the background's
-under ``background.``. Noise is an explicit argument: the render and the
-backward programs of a part must see the same draw.
+under ``background.``, the volume renderer's under ``renderer.``. Random
+draws are explicit arguments: the render and the backward programs of a part
+must see the same noise and the same volume draws (patch origin, sampler
+jitter; :meth:`TriplaneTurboTrainer.draw_volume`), where the JAX package
+derives both programs' keys from one.
 """
 
 from __future__ import annotations
@@ -42,9 +46,14 @@ from ..models.geometry.triplane_geometry import (
     mark_trainable,
 )
 from ..models.materials.no_material import NoMaterial
+from ..models.renderers.patch_renderer import PatchDraws, PatchRenderer, PatchRendererConfig
 from ..models.renderers.rasterize_renderer import (
     GenerativeSpaceMeshRasterizeRenderer,
     RasterizeRendererConfig,
+)
+from ..models.renderers.volume_renderer import (
+    GenerativeSpaceSDFVolumeRenderer,
+    VolumeRendererConfig,
 )
 from ..models.schedulers import (
     Schedule,
@@ -55,6 +64,7 @@ from ..models.schedulers import (
     make_schedule,
     pred_original,
 )
+from ..utils.ops import safe_normalize
 from ..utils.schedule import C, schedule_is_zero
 from ..utils.weights import init_random_
 from .optimizers import GuardedAdan
@@ -123,33 +133,43 @@ class TrainerConfig:
 
 
 class TriplaneTurboTrainer:
-    """Owns the geometry, the background, the material, the rasterize
-    renderer, the optimizer, ``global_step`` and the training timesteps; runs
-    programs R and B-R "1st", the generator backward and the update."""
+    """Owns the geometry, the background, the material, the rasterize and the
+    volume renderer with the patch config, the optimizer, ``global_step`` and
+    the training timesteps; runs programs R and B-R, the generator backward and
+    the update."""
 
     _GUIDANCE_IMAGE_KEYS = ("comp_rgb", "comp_normal_cam_vis", "disparity")
 
     def __init__(self, cfg: TrainerConfig, geometry: TriplaneGeometry, schedule: Schedule,
                  background: Optional[HashgridEnvironmentMapBackground] = None,
-                 rasterize_renderer: Optional[GenerativeSpaceMeshRasterizeRenderer] = None):
+                 rasterize_renderer: Optional[GenerativeSpaceMeshRasterizeRenderer] = None,
+                 volume_renderer: Optional[GenerativeSpaceSDFVolumeRenderer] = None,
+                 patch_cfg: Optional[PatchRendererConfig] = None):
         self.cfg = cfg
         self.geometry = geometry
         self.schedule = schedule
+        device = schedule.betas.device
         if background is None:
-            background = HashgridEnvironmentMapBackground().to(schedule.betas.device)
+            background = HashgridEnvironmentMapBackground().to(device)
         self.background = background
         self.rasterize_renderer = rasterize_renderer or GenerativeSpaceMeshRasterizeRenderer()
+        self.volume_renderer = volume_renderer or GenerativeSpaceSDFVolumeRenderer().to(device)
+        self.patch_cfg = patch_cfg or PatchRendererConfig()
         self.material_fn = NoMaterial()
         self.global_step = 0
         self.rng = np.random.RandomState(0)
         # the optimizer sees only the trainable partition: the geometry's
-        # adapters and field MLPs, and every background leaf; frozen leaves are
-        # never differentiated
+        # adapters and field MLPs, every background leaf and the volume
+        # renderer's variance (which ``trainable_variance: false`` detaches in
+        # the render, so that its gradient is zero); frozen leaves are never
+        # differentiated
         named = dict(geometry.named_parameters())
         self.params_train: Dict[str, torch.nn.Parameter] = {
             n: named[n] for n in mark_trainable(geometry)}
-        for n, p in self.background.named_parameters():
-            self.params_train[f"background.{n}"] = p.requires_grad_(True)
+        for prefix, module in (("background", self.background),
+                               ("renderer", self.volume_renderer)):
+            for n, p in module.named_parameters():
+                self.params_train[f"{prefix}.{n}"] = p.requires_grad_(True)
         self.trainable: List[str] = list(self.params_train)
         self.optimizer = GuardedAdan(
             self.params_train.values(), cfg.learning_rate, cfg.adan_betas, cfg.adan_eps,
@@ -165,7 +185,9 @@ class TriplaneTurboTrainer:
               space_generator_overrides: Optional[Dict[str, Any]] = None,
               device: Union[str, torch.device] = "cuda",
               background_cfg: Optional[HashgridBackgroundConfig] = None,
-              renderer_cfg: Optional[RasterizeRendererConfig] = None) -> "TriplaneTurboTrainer":
+              renderer_cfg: Optional[RasterizeRendererConfig] = None,
+              volume_cfg: Optional[VolumeRendererConfig] = None,
+              patch_cfg: Optional[PatchRendererConfig] = None) -> "TriplaneTurboTrainer":
         """A trainer on ``device`` with random weights from ``seed``.
 
         The geometry and the background are built on the meta device and
@@ -187,10 +209,11 @@ class TriplaneTurboTrainer:
         init_random_(geometry, gen)
         background = background.to_empty(device=device)
         init_random_(background, gen)
+        volume_renderer = GenerativeSpaceSDFVolumeRenderer(volume_cfg).to(device)
         schedule = make_schedule(SchedulerConfig(prediction_type=cfg.prediction_type),
                                  device=device)
         return cls(cfg, geometry, schedule, background,
-                   GenerativeSpaceMeshRasterizeRenderer(renderer_cfg))
+                   GenerativeSpaceMeshRasterizeRenderer(renderer_cfg), volume_renderer, patch_cfg)
 
     # ------------------------------------------------------------------
 
@@ -275,28 +298,101 @@ class TriplaneTurboTrainer:
             acc[n].add_(g)
         return acc
 
-    # -- the first renderer: programs R and B-R "1st" ---------------------
+    # -- the renderers: programs R and B-R ---------------------------------
+
+    def draw_volume(self, batch: Dict[str, Any], generator: torch.Generator) -> PatchDraws:
+        """The second branch's draws for one part (patch origin, both base
+        renders' sampler jitter), on ``generator``'s device; programs R and B-R
+        "2nd" of the part take the same."""
+        B, H, W, _ = batch["rays_o"].shape
+        vol = self.volume_renderer
+        return PatchRenderer.draw(self.patch_cfg, generator, B, H, W,
+                                  lambda n: vol.draw_jitter(n, generator, generator.device))
 
     def _render_branch(self, batch: Dict[str, Any], space_cache: torch.Tensor,
-                       scalars: Dict[str, Any], text_global: torch.Tensor, branch: str):
-        """Render "1st" (mesh rasterize) from ``space_cache`` with the current
-        weights; returns (out_1st, None). ``batch`` holds the step-batch's
-        tensors (``MultiviewMultipromptDataModule.to_device``)."""
-        if branch != "1st":
-            raise NotImplementedError(
-                f"branch {branch!r} needs the volume and patch renderers: ROADMAP A9 (b)")
+                       scalars: Dict[str, Any], text_global: torch.Tensor, branch: str,
+                       draws: Optional[PatchDraws] = None):
+        """Render "1st" (mesh rasterize), "2nd" (patch-wrapped volume) or "both"
+        from ``space_cache`` with the current weights; returns (out_1st,
+        out_2nd), None for a branch not rendered. ``batch`` holds the
+        step-batch's tensors (``MultiviewMultipromptDataModule.to_device``);
+        ``draws`` the second branch's (:meth:`draw_volume`). Each branch
+        renders the same whichever of the three is asked for."""
+        if branch not in ("1st", "2nd", "both"):
+            raise ValueError(f"unknown branch {branch!r}")
         geo = self.geometry
-        H = batch["rays_d_rasterize"].shape[1]
-        out_1st = self.rasterize_renderer(
-            batch["mvp_mtx"], batch["camera_positions"], space_cache,
-            geo.forward_field, lambda p, sc: geo.export(p, sc)["features"], self.material_fn,
-            lambda dirs, te: self.background(dirs, te, train=True), H, H,
-            text_embed=text_global, rays_d_rasterize=batch["rays_d_rasterize"],
-            camera_distances=batch["camera_distances"], c2w=batch["c2w"],
-            sdf_grad_shrink=scalars["sdf_grad_shrink"],
-            def_grad_shrink=scalars["def_grad_shrink"],
-            forward_field_grid=geo.forward_field_grid)
-        return out_1st, None
+
+        def background_fn(dirs, te):
+            return self.background(dirs, te, train=True)
+
+        out_1st = out_2nd = None
+        if branch in ("1st", "both"):
+            H = batch["rays_d_rasterize"].shape[1]
+            out_1st = self.rasterize_renderer(
+                batch["mvp_mtx"], batch["camera_positions"], space_cache,
+                geo.forward_field, lambda p, sc: geo.export(p, sc)["features"], self.material_fn,
+                background_fn, H, H,
+                text_embed=text_global, rays_d_rasterize=batch["rays_d_rasterize"],
+                camera_distances=batch["camera_distances"], c2w=batch["c2w"],
+                sdf_grad_shrink=scalars["sdf_grad_shrink"],
+                def_grad_shrink=scalars["def_grad_shrink"],
+                forward_field_grid=geo.forward_field_grid)
+        if branch == "1st":
+            return out_1st, None
+
+        views = batch["rays_o"].shape[0] // space_cache.shape[0]
+        field_fn = self._field_fn_2nd(space_cache, views)
+        field_inputs = [space_cache, *geo.field.parameters()]
+
+        def base_renderer(ro, rd, jitter=None, train=True):
+            return self.volume_renderer(
+                ro, rd, field_fn, background_fn, camera_distances=batch["camera_distances"],
+                c2w=batch["c2w"], text_embed=text_global, jitter=jitter, train=train,
+                rgb_grad_shrink=scalars["rgb_grad_shrink"], field_inputs=field_inputs)
+
+        out_2nd = PatchRenderer(self.patch_cfg, base_renderer)(
+            batch["rays_o"], batch["rays_d"], draws=draws, train=True)
+        return out_1st, out_2nd
+
+    def _field_fn_2nd(self, space_cache: torch.Tensor, views: int):
+        """The volume renderer's field query over ``space_cache`` [Bsc, ...], whose
+        item i is seen by views i * views ... (i + 1) * views - 1.
+
+        Points arrive grouped by view, [B, M, 3]; the field takes them grouped by
+        space-cache item, [Bsc, views * M, 3], so that the cache is never repeated
+        once a view (``views`` times the gathers' gradient temporaries)."""
+        geo = self.geometry
+        Bsc = space_cache.shape[0]
+
+        def field_fn(points, mode):
+            B, M, _ = points.shape
+            pts = points.reshape(Bsc, views * M, 3)
+
+            def ungroup(x):
+                return x.reshape(B, M, *x.shape[2:])
+
+            if mode == "sdf":  # the proposal pass reads the SDF alone
+                return {"sdf": ungroup(geo.forward_sdf(pts, space_cache))}
+            if mode:
+                # one field evaluation and its input gradient (the analytic
+                # normal), whose graph is kept when the caller differentiates on
+                outer = torch.is_grad_enabled()
+                with torch.enable_grad():
+                    p = pts.detach().requires_grad_()
+                    out = geo(p, space_cache)
+                    (grad,) = torch.autograd.grad(out["sdf"].sum(), p, create_graph=outer)
+                if not outer:
+                    out = {k: v.detach() for k, v in out.items()}
+                out = {k: ungroup(v) for k, v in out.items()}
+                out["sdf_grad"] = ungroup(grad)
+                # the SDF gradient is exactly zero where the field is constant
+                out["normal"] = safe_normalize(out["sdf_grad"])
+            else:
+                out = {k: ungroup(v) for k, v in geo(pts, space_cache).items()}
+            out["features"] = self.material_fn(out["features"])
+            return out
+
+        return field_fn
 
     def _term_on(self, name: str) -> bool:
         """Static gate: a loss term whose lambda schedule is identically zero
@@ -322,47 +418,74 @@ class TriplaneTurboTrainer:
                 loss = loss + scalars["lambda_laplacian_smoothness"] * lap
         return loss
 
+    def _regularizers_2nd(self, out_2nd: Dict[str, Any], scalars: Dict[str, Any]) -> torch.Tensor:
+        op2 = out_2nd["opacity"]
+        loss = op2.new_zeros(())
+        if self._term_on("lambda_sparsity_2nd"):
+            loss = loss + scalars["lambda_sparsity_2nd"] * torch.sqrt(op2 ** 2 + 0.01).mean()
+        if self._term_on("lambda_opaque_2nd"):
+            opc2 = torch.clamp(op2, 1e-3, 1 - 1e-3)
+            loss = loss + scalars["lambda_opaque_2nd"] * (
+                -(opc2 * torch.log(opc2) + (1 - opc2) * torch.log(1 - opc2))).mean()
+        if self._term_on("lambda_z_variance_2nd"):
+            zv = out_2nd["z_variance"]
+            sel = (op2 > 0.5).to(zv.dtype)
+            loss = loss + scalars["lambda_z_variance_2nd"] * (zv * sel).sum() / torch.clamp_min(
+                sel.sum(), 1)
+        for term, lam in (("eikonal", "lambda_eikonal_2nd"), ("orient", "lambda_orient_2nd"),
+                          ("sdf_abs", "lambda_sdf_abs")):
+            if term in out_2nd and self._term_on(lam):
+                loss = loss + scalars[lam] * out_2nd[term]
+        return loss
+
     def _stage_render(self, batch: Dict[str, Any], latent: torch.Tensor, t,
                       text_embeds: Dict[str, torch.Tensor], scalars: Dict[str, Any],
-                      noise: torch.Tensor):
-        """Program R, first branch: no-grad generator forward and render.
+                      noise: torch.Tensor, draws: PatchDraws):
+        """Program R: no-grad generator forward and both renders.
 
-        Returns (denoised, space_cache, images, overflow): the images the
-        teachers score, keyed ``{comp_rgb, comp_normal_cam_vis, disparity}_1st``,
+        Returns (denoised, space_cache, images, overflow): the six images the
+        teachers score, keyed ``{comp_rgb, comp_normal_cam_vis, disparity}_{1st,2nd}``,
         and the rasterizer's overflow counts a view (``n_span_overflow``,
-        ``n_list_overflow``, [B]), which the JAX program does not return. The
-        volume branch's images wait for ROADMAP A9 (b)."""
+        ``n_list_overflow``, [B]), which the JAX program does not return."""
+        text_global = text_embeds["global_21"]
         with torch.no_grad():
             with record_function("generator_forward"):
                 denoised, space_cache = self._denoise_decode(latent, t, text_embeds, noise)
             with record_function("render_1st"):
-                out_1st, _ = self._render_branch(batch, space_cache, scalars,
-                                                 text_embeds["global_21"], "1st")
-        images = {f"{name}_1st": out_1st[name] for name in self._GUIDANCE_IMAGE_KEYS}
+                out_1st, _ = self._render_branch(batch, space_cache, scalars, text_global, "1st")
+            with record_function("render_2nd"):
+                _, out_2nd = self._render_branch(batch, space_cache, scalars, text_global, "2nd",
+                                                 draws)
+        images = {f"{name}_{side}": out[name] for side, out in (("1st", out_1st), ("2nd", out_2nd))
+                  for name in self._GUIDANCE_IMAGE_KEYS}
         overflow = {k: out_1st[k] for k in ("n_span_overflow", "n_list_overflow")}
         return denoised, space_cache, images, overflow
 
     def _stage_student_render(self, batch: Dict[str, Any], space_cache: torch.Tensor,
                               text_embeds: Dict[str, torch.Tensor], scalars: Dict[str, Any],
-                              grad_images: Dict[str, torch.Tensor], branch: str = "1st"):
+                              grad_images: Dict[str, torch.Tensor], branch: str = "1st",
+                              draws: Optional[PatchDraws] = None):
         """Program B-R: one renderer's forward and backward from the detached
-        space cache, loss = sum(g * image) over the guidance images plus the
-        branch's regularizers.
+        space cache, loss = sum(g * image) over the branch's guidance images
+        plus its regularizers; ``draws`` are the part's (the same as program
+        R's) for the second branch.
 
         Returns (grads, g_space, regu): a gradient per trainable parameter
-        (the field MLPs and the background; zeros for the adapters, which
-        B-G reaches through ``g_space``), d(loss)/d(space_cache) and the
-        regularizer's value."""
-        if branch != "1st":
-            raise NotImplementedError(
-                f"program B-R {branch!r} needs the volume and patch renderers: ROADMAP A9 (b)")
+        (the field MLPs, the background and the volume renderer's variance;
+        zeros for the adapters, which B-G reaches through ``g_space``),
+        d(loss)/d(space_cache) and the regularizers' value."""
+        if branch not in ("1st", "2nd"):
+            raise ValueError(f"program B-R renders one branch, not {branch!r}")
         sc = space_cache.detach().requires_grad_()
         params = list(self.params_train.values())
         with record_function(f"render_backward_{branch}"), torch.enable_grad():
-            out, _ = self._render_branch(batch, sc, scalars, text_embeds["global_21"], branch)
+            out_1st, out_2nd = self._render_branch(batch, sc, scalars, text_embeds["global_21"],
+                                                   branch, draws)
+            out = out_1st if branch == "1st" else out_2nd
             fid_proxy = sum((grad_images[f"{name}_{branch}"].detach() * out[name]).sum()
                             for name in self._GUIDANCE_IMAGE_KEYS)
-            regu = self._regularizers_1st(out, scalars)
+            regu = (self._regularizers_1st(out, scalars) if branch == "1st"
+                    else self._regularizers_2nd(out, scalars))
             g_space, *grads = torch.autograd.grad(fid_proxy + regu, [sc, *params],
                                                   allow_unused=True)
         grads = {n: torch.zeros_like(p) if g is None else g
@@ -373,9 +496,9 @@ class TriplaneTurboTrainer:
 
     def _stage_teacher(self, *args, **kwargs):
         raise NotImplementedError(
-            "program G needs the teachers and ASD guidance: ROADMAP A9 (c)")
+            "program G needs the teachers, ASD guidance and the VAE encoder: ROADMAP A9 (c)")
 
     def train_step(self, batch_list: Sequence[Dict[str, Any]], text_embeds: Dict[str, Any],
                    generator: torch.Generator):
         raise NotImplementedError(
-            "train_step needs program G, the volume branch and the launcher: ROADMAP A9 (b)-(d)")
+            "train_step needs program G and the launcher: ROADMAP A9 (c)-(d)")

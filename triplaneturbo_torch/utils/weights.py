@@ -13,8 +13,8 @@ one torch parameter by its last name alone:
 The same mapping carries any tree shaped like the parameters (gradients,
 optimizer moments) across, in either direction: :func:`flax_tree_to_named`,
 :func:`named_to_flax_tree`, :func:`load_adan_state`. It covers the geometry
-and the hash-grid background alike (``hypernet/fc_in``, ``ln_in``,
-``fc_out``, ``encoding/table``).
+the hash-grid background (``hypernet/fc_in``, ``ln_in``, ``fc_out``,
+``encoding/table``) and the volume renderer (``variance_inv_std``) alike.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from torch import nn
 
 from ..models.background.hashgrid_env_map import LinearHyperNetwork
 from ..models.lora import LoConAdapter, LoRAAdapter, PlaneLoRAAdapter
+from ..models.renderers.volume_renderer import GenerativeSpaceSDFVolumeRenderer
 from ..ops.hashgrid import HashGridEncoding
 
 
@@ -42,6 +43,12 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
+def _contiguous(arr: np.ndarray) -> np.ndarray:
+    """A C-contiguous copy that keeps a scalar a scalar (``np.ascontiguousarray``
+    makes it 1-d)."""
+    return np.ascontiguousarray(arr).reshape(arr.shape)
+
+
 def _torch_leaf(path: str, arr: np.ndarray):
     """(torch parameter name, array in torch layout) for one flax leaf."""
     *mods, leaf = path.split("/")
@@ -53,7 +60,7 @@ def _torch_leaf(path: str, arr: np.ndarray):
             arr = arr.transpose(3, 2, 0, 1)
         else:
             raise ValueError(f"{path}: kernel of rank {arr.ndim}")
-    return ".".join(mods + [name]), np.ascontiguousarray(arr)
+    return ".".join(mods + [name]), _contiguous(arr)
 
 
 def flax_tree_to_named(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
@@ -77,7 +84,7 @@ def named_to_flax_tree(named: Mapping[str, Any], like: Mapping[str, Any]) -> Dic
         *mods, last = path.split("/")
         for m in mods:
             node = node.setdefault(m, {})
-        node[last] = np.ascontiguousarray(arr)
+        node[last] = _contiguous(arr)
     return out
 
 
@@ -141,7 +148,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     N(0, 0.01²); LoRA ``down`` N(0, 1)/rank, LoCon ``down`` kaiming uniform,
     and every adapter ``up`` 0, so fresh adapters add nothing; the
     hypernetwork's kernels xavier normal, the hash-grid table uniform in
-    ±1e-4.
+    ±1e-4, the volume renderer's ``variance_inv_std`` its configured start.
     """
     done = set()
     for m in module.modules():
@@ -154,6 +161,8 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
                     done.add(id(lin.weight))
         elif isinstance(m, HashGridEncoding):
             m.reset_parameters(generator)
+        elif isinstance(m, GenerativeSpaceSDFVolumeRenderer):
+            m.variance_inv_std.fill_(m.cfg.learned_variance_init)
         elif isinstance(m, (LoRAAdapter, PlaneLoRAAdapter)):
             _normal_(m.down, 1.0 / m.rank, generator)
             m.up.zero_()
