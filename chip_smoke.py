@@ -25,6 +25,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                tensor-core tiling (one row or key below and above a tile, one key,
                one batch-head, Lk = 77, q scaled by 8; bf16 and f32), where they
                must also agree with each other and from run to run bit for bit;
+               program G's new shapes: the forward at the MV teacher's 4-view joint
+               self-attention (30, 4096, 4096, 64) and SD's cross-attention (30, 4096,
+               77, 64), the forward with stats and both backward kernels at the VAE
+               encoders' mid attention (8, 1024, 1024, 512) and (2, 4096, 4096, 512);
                the dq and dk/dv kernels at the edges of their tensor-core tiling
                (bf16: one row or key below and above each tile on both sides, one
                key, one batch-head, Lk = 77, q scaled by 8, q = -12 times the first
@@ -63,7 +67,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                16² rays: a 5² global render and one 8² patch, 32 + 32 samples a ray) on
                the card against the CPU from the same weights, space cache, cotangents
                and draws (patch origin, sampler jitter): images, the space-cache
-               cotangent and every field, background and variance gradient.
+               cotangent and every field, background and variance gradient; and its
+               program G (2 prompts x 4 views, 64² and 32² images; MV and SD teachers
+               of 64 and 128 channels at head dim 64, VAE encoders to 64 channels, so
+               that their attention and the encoders' take the kernels; RichDreamer's
+               8 heads take the einsum path), the renderers one after the other and
+               stacked, on the card against the CPU from the same teacher weights,
+               images, cameras, text states and draws: fid, grad_norm_mv and the six
+               image gradients, with exact launch counts.
 6. pipeline -- prompt -> textured mesh at full width (SD-2.1 student UNet, OpenCLIP-H
                text tower, retrofitted VAE, R=160 marching cubes) in bf16 on random
                weights from a seed: one warm-up prompt and three timed prompts through
@@ -77,16 +88,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
                for the volume renderer (a 42² global render and one 40² patch, 128
                proposal and 64 fine samples a ray, the variance not trained), the
                hash-grid background (c_dim 1024), the v1 loss's second-branch sparsity
-               and eikonal terms. Steps of four parts, each part program R (no-grad
-               generator forward and both renders), seeded image cotangents for the six
-               images in place of the teachers (program G), program B-R "1st" and
-               program B-R "2nd" (each render's forward and backward from the detached
-               space cache: the field MLPs', the background's, the variance's and the
-               space cache's gradients; R and B-R "2nd" take the same draws), and
-               program B-G with the two branches' space-cache cotangents; then the
-               update. Launch counts of all five kernels are asserted for every part;
-               one more part runs under ``torch.profiler`` (device-busy ms of each
-               program's range). Then the ``rasterize`` line: CUDA-event ms of one 512²
+               and eikonal terms; the three frozen teachers in bf16 (SD-2.1 base,
+               MVDream 4-view with camera, RichDreamer 768-d with camera, and the MV and
+               SD VAE encoders), and the dual prompt processor (OpenCLIP-H and SD-1.5
+               towers, its cache in a temporary directory), which encodes the data
+               module's training prompts. Steps of four parts, each part program R
+               (no-grad generator forward and both renders), program G (the teachers
+               over the six images, the renderers one after the other: fid,
+               grad_norm_mv and the image gradients), program B-R "1st" and program
+               B-R "2nd" with G's gradients (each render's forward and backward from
+               the detached space cache: the field MLPs', the background's, the
+               variance's and the space cache's gradients; R and B-R "2nd" take the
+               same draws), and program B-G with the two branches' space-cache
+               cotangents; then the update. Launch counts of all five kernels are
+               asserted for every part; one more part runs under ``torch.profiler``
+               (device-busy ms of each program's range). Then the ``guidance`` line:
+               CUDA-event ms of one part's program G and of its pieces (each teacher's
+               UNet passes, the encoders' forward and backward, RichDreamer's einsum
+               attention); the ``rasterize`` line: CUDA-event ms of one 512²
                view of the full-width mesh, the select pass (culling, binning, winners;
                no grad) and the differentiable recompute (forward and backward) apart;
                and the ``volume`` line: CUDA-event ms of one part's second branch, the
@@ -166,6 +185,18 @@ BWD_EDGE_SHAPES = [("below the tiles 63/63", 2, 63, 63, 64, 1.0),
                    ("D=512 129/129", 1, 129, 129, 512, 1.0),
                    ("D=512 31/33", 2, 31, 33, 512, 1.0)]
 FLASH_PER_PASS = sum(s[-1] for s in TRAIN_ATTN_SHAPES)  # 26: one UNet pass and one VAE decode
+# Program G's flash sites at the v1 recipe (2 prompts x 4 views, the renderers one after
+# the other; MV scores 256² images, SD one view a prompt at 512²): (site, BH, L, Lk, D).
+# The teachers' UNets run without grad (the plain forward), the VAE encoders' single-head
+# D = 512 mid attention with grad (stats forward, dq, dk/dv).
+TEACHER_FWD_SHAPES = [("MV joint self 32x32 (4 views)", 30, 4096, 4096, 64),
+                      ("SD cross 64x64", 30, 4096, 77, 64)]
+ENCODER_SHAPES = [("MV encoder mid attention 32x32", 8, 1024, 1024, 512),
+                  ("SD encoder mid attention 64x64", 2, 4096, 4096, 512)]
+# flash-forward launches of one teacher UNet pass (the sites with D = 64 and L >= 128):
+# MVDream 25 (its 8² cross and its mid block fail the gate), SD-2.1 30 (its 8² mid block);
+# RichDreamer none (8 heads: D = 40, 80 and 160 take the einsum path)
+MV_FLASH_PER_PASS, SD_FLASH_PER_PASS = 25, 30
 FIELD_GRID_EDGE_R = (37, 63, 64, 65, 129)
 # absolute, except flash attention in bf16: a fraction of max |reference|
 TOL = {("flash_attn_fwd", "float32"): 1e-4, ("flash_attn_fwd", "bfloat16"): 1e-2,
@@ -176,12 +207,11 @@ TOL = {("flash_attn_fwd", "float32"): 1e-4, ("flash_attn_fwd", "bfloat16"): 1e-2
        ("field_grid_split", "float32"): 2e-6}
 TIMED_PROMPTS = 3
 STAGES = ("text_encoder", "denoise", "vae_decode", "field_grid", "marching_cubes", "colorize")
-TRAIN_STAGES = ("generator_forward", "render_1st", "render_2nd", "render_backward_1st",
-                "render_backward_2nd", "generator_backward")
+TRAIN_STAGES = ("generator_forward", "render_1st", "render_2nd", "teacher",
+                "render_backward_1st", "render_backward_2nd", "generator_backward")
 TRAIN_STEPS = 3  # one warm-up step and two timed ones, four parts each
-# seeded cotangents standing in for what is not ported: the teachers' image gradients
-# (program G)
-IMAGE_COT_SCALE = 1e-3
+# the three teachers at full width (SD-2.1 base, MVDream 4-view, RichDreamer 768-d)
+FULL_TEACHERS = {"mv": {}, "rd": {}, "sd": {}}
 # the v1 recipe's second-branch loss terms and rgb shrink (configs/triplaneturbo_v1.yaml)
 V1_LOSS = dict(lambda_sparsity_2nd=[0, 1.0, 0.0, 20000], lambda_eikonal_2nd=[0, 1.0, 0.0, 20000])
 V1_RGB_GRAD_SHRINK = [0, 1.0, 0.01, 20000]
@@ -637,6 +667,12 @@ def phase_kernels():
     # the edges of the field grid's 8 x 8 tiles: partial (37, 63, 65, 129) and whole (64)
     for R in FIELD_GRID_EDGE_R:
         rows.append(field_grid_case(R, 32, False, gen))
+    for site, BH, L, Lk, D in TEACHER_FWD_SHAPES:
+        rows.append(attention_case(site, BH, L, Lk, D, "bfloat16", gen))
+        torch.cuda.empty_cache()
+    for site, BH, L, Lk, D in ENCODER_SHAPES:
+        rows += training_attention_case(site, BH, L, Lk, D, "bfloat16", gen)
+        torch.cuda.empty_cache()
     for site, BH, L, Lk, D, _ in TRAIN_ATTN_SHAPES + RAGGED_SHAPES:
         rows += training_attention_case(site, BH, L, Lk, D, "bfloat16", gen)
         if "joint 6 planes" in site and L == 6144 or D == 512 or site.startswith("ragged"):
@@ -960,10 +996,118 @@ def _volume_against_cpu(on_card, on_cpu):
     return got, ref, agree
 
 
+# The small model's teachers for program G: head dim 64, and VAE encoders whose last block
+# has 64 channels (single-head D = 64 mid attention), at image sizes that give every
+# such site L >= 128 (32² latents), so that the MV and SD teachers' attention and the
+# encoders' mid attention take the kernels on the card. RichDreamer keeps its 8 heads
+# (D = 8, 16: the einsum path, as at full width).
+SMALL_TEACHER = dict(block_out_channels=(64, 128), layers_per_block=1, attention_head_dim=64,
+                     cross_attention_dim=64)
+SMALL_TEACHER_VAE = dict(vae_block_out_channels=(32, 64), vae_layers_per_block=1)
+SMALL_TEACHERS = {"mv": {**SMALL_TEACHER, **SMALL_TEACHER_VAE}, "rd": dict(SMALL_TEACHER),
+                  "sd": {**SMALL_TEACHER, **SMALL_TEACHER_VAE}}
+SMALL_GUIDANCE = dict(mv_image_size=64, rd_image_size=32, sd_image_size=64)
+SMALL_G_HW = (64, 32)  # the small program G's first and second renders
+
+
+def _draws_on(draws, device):
+    """Program G's draws on ``device``."""
+    return {kind: [d.to(device) for d in ds] for kind, ds in draws.items()}
+
+
+def _small_program_g():
+    """The small model's program G on the card (kernels) against the CPU (plain
+    versions), f32, from the same teacher weights, images, cameras, text states and
+    draws, with the renderers one after the other and stacked."""
+    import torch
+    from triplaneturbo_torch.data.multiview_multiprompt import (
+        DataModuleConfig,
+        MultiviewMultipromptDataModule,
+    )
+    from triplaneturbo_torch.models.background.hashgrid_env_map import (
+        HashgridBackgroundConfig,
+        HyperNetConfig,
+    )
+    from triplaneturbo_torch.models.guidance.asd_guidance import ASDConfig
+    from triplaneturbo_torch.ops import flash_attention as fa
+    from triplaneturbo_torch.systems.trainer import TrainerConfig, TriplaneTurboTrainer
+
+    def build(device, parallel):
+        return TriplaneTurboTrainer.build(
+            TrainerConfig(parallel_guidance=parallel), seed=0, device=device,
+            space_generator_overrides=SMALL_SG,
+            background_cfg=HashgridBackgroundConfig(
+                hypernet=HyperNetConfig(c_dim=SMALL_SG["cross_attention_dim"])),
+            teacher_sizes=SMALL_TEACHERS, teacher_dtype="float32",
+            guidance_cfg=ASDConfig(**SMALL_GUIDANCE))
+
+    hw1, hw2 = SMALL_G_HW
+    dm = MultiviewMultipromptDataModule(DataModuleConfig(
+        batch_size=8, n_view=4, height=hw1, width=hw1, ray_height=hw2, ray_width=hw2,
+        n_steps=1), seed=0)
+    host_batch = {k: v for k, v in dm.sample_train_batch()[0].items() if k != "noise"}
+    gen = torch.Generator().manual_seed(8)
+    images = {f"{k}_{side}": torch.rand((8, hw, hw, c), generator=gen)
+              for k, c in (("comp_rgb", 3), ("comp_normal_cam_vis", 3), ("disparity", 1))
+              for side, hw in (("1st", hw1), ("2nd", hw2))}
+    text = {k: torch.randn((2, 77, SMALL_TEACHER["cross_attention_dim"]), generator=gen)
+            for k in ("cond_21", "uncond_21", "cond_15", "uncond_15")}
+    rows = {}
+    for parallel in (False, True):
+        trainers = {dev: build(dev, parallel) for dev in ("cpu", "cuda")}
+        for kind in ("mv", "rd", "sd"):
+            src, dst = (getattr(trainers[d].guidance, kind) for d in ("cpu", "cuda"))
+            dst.unet.load_state_dict(src.unet.state_dict())
+            if src.vae is not None:
+                dst.vae.load_state_dict(src.vae.state_dict())
+        scalars = trainers["cpu"].host_scalars()
+        draws = trainers["cpu"].draw_guidance(MultiviewMultipromptDataModule.to_device(
+            host_batch, "cpu"), torch.Generator().manual_seed(9))
+        outs, launches = {}, {}
+        for dev, tr in trainers.items():
+            fa.LAUNCHES = fa.LAUNCHES_STATS = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKDV = 0
+            outs[dev] = tr._stage_teacher(
+                {k: v.to(dev) for k, v in images.items()},
+                MultiviewMultipromptDataModule.to_device(host_batch, dev),
+                {k: v.to(dev) for k, v in text.items()}, scalars, _draws_on(draws, dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            launches[dev] = {"flash_attn_fwd": fa.LAUNCHES,
+                             "flash_attn_fwd_stats": fa.LAUNCHES_STATS,
+                             "flash_attn_bwd_dq": fa.LAUNCHES_BWD_DQ,
+                             "flash_attn_bwd_dkdv": fa.LAUNCHES_BWD_DKDV}
+        # a teacher call a renderer (stacked: one for both); 8 kernel sites a small MV or SD
+        # UNet pass; one encoder mid attention a MV or SD call
+        calls = 1 if parallel else 2
+        want = {"flash_attn_fwd": calls * 2 * 8, "flash_attn_fwd_stats": calls * 2,
+                "flash_attn_bwd_dq": calls * 2, "flash_attn_bwd_dkdv": calls * 2}
+        check(not any(launches["cpu"].values()) and launches["cuda"] == want,
+              f"train_reference program G (parallel {parallel}): launches {launches}, "
+              f"expected {want} on the card")
+        (fid_c, gn_c), g_c = outs["cuda"]
+        (fid_r, gn_r), g_r = outs["cpu"]
+        row = {"fid": [float(fid_c), float(fid_r)],
+               "fid_rel_err": _rel(fid_c.reshape(1), fid_r.reshape(1), "fid"),
+               "grad_norm_mv": [gn_c.tolist(), gn_r.tolist()],
+               "grad_norm_mv_rel_err": _rel(gn_c.reshape(-1), gn_r.reshape(-1), "grad_norm_mv"),
+               "grads": {}, "launches": launches["cuda"]}
+        for k, ref in g_r.items():
+            check(bool(ref.any()), f"train_reference program G: zero CPU gradient for {k}")
+            row["grads"][k] = _rel(g_c[k], ref, k)
+        row["worst_rel_err"] = max([row["fid_rel_err"], row["grad_norm_mv_rel_err"],
+                                    *row["grads"].values()])
+        check(row["worst_rel_err"] <= SMALL_REL_TOL, f"train_reference program G (parallel "
+              f"{parallel}): card against CPU rel err {row['worst_rel_err']}: {row}")
+        rows["stacked" if parallel else "one_after_the_other"] = row
+        del trainers, outs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_train_reference():
     """The small model's generator backward and update: card (kernels, with and
-    without gradient checkpointing) against the CPU (plain versions), f32; and its
-    program B-R "1st" on the card against the CPU."""
+    without gradient checkpointing) against the CPU (plain versions), f32; its
+    programs B-R "1st" and "2nd", and its program G, on the card against the CPU."""
     import torch
     from triplaneturbo_torch.data.multiview_multiprompt import MultiviewMultipromptDataModule
     from triplaneturbo_torch.models.background.hashgrid_env_map import (
@@ -1140,10 +1284,13 @@ def phase_train_reference():
         "flash_attn_bwd_dq": n_sites + 5, "flash_attn_bwd_dkdv": n_sites + 5},
         f"train_reference: checkpointed launches {launches['cuda_checkpoint']}, plain {n_sites}")
 
+    teacher_rows = _small_program_g()
     row = {"phase": "train_reference", "what": "small model, program B-R \"1st\" (R=16, 2x2 "
            "views at 64²), program B-R \"2nd\" (16² rays: 5² global, 8² patch, 32 + 32 "
-           "samples), program B-G + guarded Adan update, card (kernels) vs CPU (plain), f32",
-           "rel_tol": SMALL_REL_TOL, "render_backward_1st": br_row,
+           "samples), program G (2 prompts x 4 views, 64² and 32² images, teachers of 64 and "
+           "128 channels, head dim 64, encoders to 64 channels), program B-G + guarded Adan "
+           "update, card (kernels) vs CPU (plain), f32",
+           "rel_tol": SMALL_REL_TOL, "teacher": teacher_rows, "render_backward_1st": br_row,
            "render_backward_1st_worst_rel_err": worst_br, "render_backward_2nd": br2_row,
            "render_backward_2nd_worst_rel_err": worst_br2, "launches": launches,
            "leaves": len(grads["cpu"])}
@@ -1184,22 +1331,22 @@ def phase_train_reference():
 def _training_part(trainer, batch, latent, t, text, scalars, gen):
     """One denoise part of the staged step, as far as it is ported.
 
-    Program R (no-grad generator forward, both renders), seeded image cotangents in
-    place of program G, programs B-R "1st" and "2nd" (field MLP, background and
-    variance gradients, and each branch's space-cache cotangent; "2nd" with R's
-    draws), and program B-G with the two cotangents. Returns the next latent, the
-    part's gradients for every trainable leaf, and what the checks read.
+    Program R (no-grad generator forward, both renders), program G (the three teachers
+    over R's six images, the renderers one after the other), programs B-R "1st" and
+    "2nd" with G's image gradients (field MLP, background and variance gradients, and
+    each branch's space-cache cotangent; "2nd" with R's draws), and program B-G with the
+    two cotangents: the JAX package's ``_train_step_staged`` order. Returns the next
+    latent, the part's gradients for every trainable leaf, and what the checks read.
     """
     import torch
 
-    def seeded(x, scale):
-        return torch.randn(x.shape, generator=gen, device=x.device) * scale
-
-    noise = seeded(latent, 1.0)
+    noise = torch.randn(latent.shape, generator=gen, device=latent.device)
     draws = trainer.draw_volume(batch, gen)
+    guidance_draws = trainer.draw_guidance(batch, gen)
     denoised, space_cache, images, overflow = trainer._stage_render(batch, latent, t, text,
                                                                     scalars, noise, draws)
-    grad_images = {k: seeded(v, IMAGE_COT_SCALE) for k, v in images.items()}
+    (fid, grad_norm_mv), grad_images = trainer._stage_teacher(images, batch, text, scalars,
+                                                              guidance_draws)
     grads, g_space_1st, _ = trainer._stage_student_render(batch, space_cache, text, scalars,
                                                           grad_images, branch="1st")
     grads_2nd, g_space_2nd, regu_2nd = trainer._stage_student_render(
@@ -1208,11 +1355,119 @@ def _training_part(trainer, batch, latent, t, text, scalars, gen):
     for n in grads:
         grads[n].add_(grads_2nd[n]).add_(grads_g[n])
     info = {"images": images, "overflow": overflow, "space_cache": space_cache,
+            "fid": fid, "grad_norm_mv": grad_norm_mv, "grad_images": grad_images,
             "g_space_1st_abs_max": g_space_1st.abs().max(),
             "g_space_1st_finite": torch.isfinite(g_space_1st).all(),
             "g_space_2nd_abs_max": g_space_2nd.abs().max(),
             "g_space_2nd_finite": torch.isfinite(g_space_2nd).all(), "regu_2nd": regu_2nd}
     return denoised.detach(), grads, info
+
+
+def phase_guidance(trainer, batch, images, text, scalars, gen):
+    """CUDA-event ms of one full-width part's program G (``_stage_teacher`` on the last
+    part's images) and of its pieces at the part's shapes: each teacher's UNet passes
+    (no grad), the MV and SD VAE encoders' forward (with grad) and forward + backward,
+    and RichDreamer's einsum attention alone (its every site, recorded from one RD pass);
+    the peak memory of an RD pass above its start."""
+    import torch
+    from triplaneturbo_torch.models import attention as attention_module
+    from triplaneturbo_torch.ops import flash_attention as fa
+
+    g = trainer.guidance
+    gcfg = g.cfg
+    parallel = trainer.cfg.parallel_guidance
+    calls = 1 if parallel else 2
+    views = batch["c2w"].shape[0] * (2 if parallel else 1)  # images a teacher call
+    draws = trainer.draw_guidance(batch, gen)
+    whole_ms = cuda_ms(lambda: trainer._stage_teacher(images, batch, text, scalars, draws), 2,
+                       warmup=1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def unet_passes(kind, n, hw):
+        bundle = getattr(g, kind)
+        ucfg = bundle.unet.cfg
+        x, ctx = randn(3 * n, hw, hw, 4), randn(3 * n, 77, ucfg.cross_attention_dim)
+        ts = torch.randint(20, 980, (3 * n,), generator=gen, device="cuda")
+        cam = randn(3 * n, ucfg.camera_dim) if ucfg.camera_dim else None
+
+        def run():
+            with torch.no_grad():
+                for _ in range(calls):
+                    bundle.unet(x, ts, ctx, cam)
+        return run
+
+    def encoder(kind, n, size):
+        vae = getattr(g, kind).vae
+        f = 2 ** (len(vae.cfg.block_out_channels) - 1)
+        x = randn(n, size, size, 3).requires_grad_()
+        eps, gy = randn(n, size // f, size // f, 4), randn(n, size // f, size // f, 4)
+
+        def fwd():
+            with torch.enable_grad():
+                for _ in range(calls):
+                    vae.encode(x, eps)
+
+        def fwd_bwd():
+            for _ in range(calls):
+                with torch.enable_grad():
+                    torch.autograd.grad(vae.encode(x, eps), x, gy)
+        return fwd, fwd_bwd
+
+    prompts = batch["c2w"].shape[0] // gcfg.n_view * (2 if parallel else 1)
+    passes = {"mv": unet_passes("mv", views, g._latent_hw("mv")),
+              "rd": unet_passes("rd", views, g._latent_hw("rd")),
+              "sd": unet_passes("sd", prompts, g._latent_hw("sd"))}
+    unet_ms = {k: cuda_ms(fn, 3, warmup=1) for k, fn in passes.items()}
+    enc = {"mv": encoder("mv", views, gcfg.mv_image_size),
+           "sd": encoder("sd", prompts, gcfg.sd_image_size)}
+    enc_ms = {k: {"forward_ms": cuda_ms(f, 3, warmup=1), "forward_backward_ms": cuda_ms(fb, 3,
+                                                                                      warmup=1)}
+              for k, (f, fb) in enc.items()}
+
+    # RichDreamer's attention: every site's shapes from one pass, then the einsum path alone
+    sites, dispatch = [], attention_module.attention_dispatch
+
+    def recording(q, k, v):
+        sites.append((tuple(q.shape), tuple(k.shape)))
+        return dispatch(q, k, v)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    attention_module.attention_dispatch = recording
+    try:
+        passes["rd"]()
+    finally:
+        attention_module.attention_dispatch = dispatch
+    torch.cuda.synchronize()
+    rd_peak = torch.cuda.max_memory_allocated() - base
+    dtype = g.rd.unet.cfg.dtype
+    tensors = [(randn(*qs).to(dtype), randn(*ks).to(dtype), randn(*ks).to(dtype))
+               for qs, ks in sites[:len(sites) // calls]]
+
+    def rd_attention():
+        with torch.no_grad():
+            for _ in range(calls):
+                for q, k, v in tensors:
+                    fa.attention(q, k, v)
+
+    launches = fa.LAUNCHES
+    rd_attention_ms = cuda_ms(rd_attention, 2, warmup=1)
+    check(fa.LAUNCHES == launches, "guidance: RichDreamer's attention launched a kernel")
+    pieces = sum(unet_ms.values()) + sum(e["forward_backward_ms"] for e in enc_ms.values())
+    row = {"phase": "guidance", "what": "one full-width part's program G: 2 prompts x 4 views, "
+           f"the renderers {'stacked' if parallel else 'one after the other'} ({calls} call(s) "
+           f"a teacher); MV {views} images at {gcfg.mv_image_size}², RD at "
+           f"{gcfg.rd_image_size}², SD {prompts} at {gcfg.sd_image_size}²",
+           "program_g_ms": whole_ms, "unet_no_grad_ms": unet_ms, "encoder_ms": enc_ms,
+           "rd_einsum_attention_ms": rd_attention_ms,
+           "rd_attention_sites": [list(x) for x in sites[:len(sites) // calls]],
+           "rd_pass_peak_above_start_bytes": rd_peak,
+           "rest_ms": whole_ms - pieces}
+    emit(row)
+    return row
 
 
 def phase_rasterize(trainer, batch, space_cache):
@@ -1263,7 +1518,8 @@ def phase_rasterize(trainer, batch, space_cache):
 
 def phase_training():
     """The student's training step at full width as far as it is ported: 2 prompts x 4
-    views, bf16, R = 160, 512² renders."""
+    views, bf16, R = 160, 512² renders, the three teachers and the dual prompt
+    processor."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as profiler
@@ -1274,6 +1530,7 @@ def phase_training():
     from triplaneturbo_torch.models.renderers.volume_renderer import VolumeRendererConfig
     from triplaneturbo_torch.ops import field_grid as fg
     from triplaneturbo_torch.ops import flash_attention as fa
+    from triplaneturbo_torch.systems.prompt_setup import build_prompt_setup
     from triplaneturbo_torch.systems.trainer import (
         LossConfig,
         TrainerConfig,
@@ -1287,18 +1544,34 @@ def phase_training():
     trainer = TriplaneTurboTrainer.build(
         TrainerConfig(loss=LossConfig(**V1_LOSS), rgb_grad_shrink=V1_RGB_GRAD_SHRINK), seed=0,
         device="cuda", space_generator_overrides=dict(dtype_str="bfloat16"),
-        volume_cfg=VolumeRendererConfig(trainable_variance=False, field_chunk=FIELD_CHUNK))
+        volume_cfg=VolumeRendererConfig(trainable_variance=False, field_chunk=FIELD_CHUNK),
+        teacher_sizes=FULL_TEACHERS, teacher_dtype="bfloat16")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     cfg = trainer.cfg
+    g = trainer.guidance
+    teacher_params = {kind: sum(p.numel() for m in getattr(g, kind) if m is not None
+                                for p in m.parameters()) for kind in ("mv", "rd", "sd")}
+    for kind in ("mv", "rd", "sd"):
+        for m in getattr(g, kind):
+            if m is not None:
+                check(all(p.dtype == torch.bfloat16 and not p.requires_grad
+                          for p in m.parameters()), f"training: the {kind} teacher is not "
+                      "frozen in bf16")
     data = MultiviewMultipromptDataModule(DataModuleConfig(), seed=0)
     check(data.cfg.batch_size == TRAIN_PROMPTS * data.cfg.n_view
           and data.cfg.n_steps == cfg.num_parts_training, "training: data module config")
     gen = torch.Generator(device="cuda").manual_seed(7)
-    # seeded text states stand in for the prompt processor (OpenCLIP-H states, 77 x 1024,
-    # and the pooled state the background's hypernetwork reads)
-    text = {"cond_local": torch.randn((TRAIN_PROMPTS, 77, 1024), generator=gen, device="cuda"),
-            "global_21": torch.randn((TRAIN_PROMPTS, 1024), generator=gen, device="cuda")}
+    # the dual prompt processor (the OpenCLIP-H SD-2.1 tower and the SD-1.5 tower, random
+    # weights from seed 0) encodes the data module's whole training library into its cache
+    cache_dir = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    processor, embeds_for = build_prompt_setup(1024, seed=0, device="cuda",
+                                               cache_dir=cache_dir.name)
+    processor.prepare_text_embeddings(list(data.library["train"]))
+    torch.cuda.synchronize()
+    prompts_s = time.perf_counter() - t0
+    n_cached = len(os.listdir(cache_dir.name))
     # kept on the host, so that the copy does not count in the peak device memory
     named = {**dict(trainer.geometry.named_parameters()),
              **{f"background.{n}": p for n, p in trainer.background.named_parameters()},
@@ -1306,10 +1579,15 @@ def phase_training():
     before = {n: p.detach().cpu() for n, p in named.items()}
 
     # launches a part: R's no-grad forward takes the plain forward kernel once per site;
-    # B-G takes the stats forward and both backward kernels once per site; the field grid
-    # runs once per prompt in R and once per prompt in B-R
-    expected = {"flash_attn_fwd": FLASH_PER_PASS, "flash_attn_fwd_stats": FLASH_PER_PASS,
-                "flash_attn_bwd_dq": FLASH_PER_PASS, "flash_attn_bwd_dkdv": FLASH_PER_PASS,
+    # G takes it once per MV and SD teacher site for each renderer's images, and the
+    # stats forward and both backward kernels once per MV and SD encoder call; B-G takes
+    # the stats forward and both backward kernels once per site; the field grid runs once
+    # per prompt in R and once per prompt in B-R
+    encoder_calls = 2 * 2
+    expected = {"flash_attn_fwd": FLASH_PER_PASS + 2 * (MV_FLASH_PER_PASS + SD_FLASH_PER_PASS),
+                "flash_attn_fwd_stats": FLASH_PER_PASS + encoder_calls,
+                "flash_attn_bwd_dq": FLASH_PER_PASS + encoder_calls,
+                "flash_attn_bwd_dkdv": FLASH_PER_PASS + encoder_calls,
                 "field_grid": 2 * TRAIN_PROMPTS}
 
     def reset_counts():
@@ -1323,9 +1601,11 @@ def phase_training():
 
     totals = dict.fromkeys(expected, 0)
     part_ms, step_ms, overflow_seen, g_space_max, regu_2nd = [], [], [], [], []
+    fids, grad_norms, grad_image_max = [], [], []
     for step in range(TRAIN_STEPS):
         data.update_step(trainer.global_step)
         batch_list = data.sample_train_batch()
+        text = embeds_for(batch_list[0]["prompt"])
         timesteps = sample_timesteps(trainer.all_timesteps, cfg.num_parts_training, trainer.rng)
         scalars = trainer.host_scalars()
         acc = None
@@ -1352,6 +1632,18 @@ def phase_training():
                       f"training step {step} t={t}: g_space_{side} not finite or zero")
             check(bool(torch.isfinite(info["regu_2nd"])), f"training step {step} t={t}: "
                   f"regu of the 2nd branch {float(info['regu_2nd'])}")
+            check(bool(torch.isfinite(info["fid"])) and bool(torch.isfinite(info["grad_norm_mv"])),
+                  f"training step {step} t={t}: fid {float(info['fid'])}, grad_norm_mv "
+                  f"{float(info['grad_norm_mv'])}")
+            for k_, gi in info["grad_images"].items():
+                check(tuple(gi.shape) == tuple(info["images"][k_].shape)
+                      and bool(torch.isfinite(gi).all()) and bool(gi.any()),
+                      f"training step {step} t={t}: the image gradient {k_} is not finite "
+                      "or is zero")
+            fids.append(float(info["fid"]))
+            grad_norms.append(float(info["grad_norm_mv"]))
+            grad_image_max.append({k_: float(gi.abs().max())
+                                   for k_, gi in info["grad_images"].items()})
             for k_, img in info["images"].items():
                 c = 1 if k_.startswith("disparity") else 3
                 hw = 512 if k_.endswith("_1st") else data.cfg.ray_height
@@ -1394,6 +1686,7 @@ def phase_training():
     scalars = trainer.host_scalars()
     batch_list = data.sample_train_batch()
     batch = data.to_device(batch_list[0], "cuda")
+    text = embeds_for(batch_list[0]["prompt"])
     latent = torch.from_numpy(batch_list[0]["noise"]).to("cuda")
     with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, info = _training_part(trainer, batch, latent, 999, text, scalars, gen)
@@ -1417,15 +1710,18 @@ def phase_training():
           "(output_dim 64) + field MLPs + hash-grid background (c_dim 1024, 8 x 2 levels, "
           "T = 2^19), 2 prompts x 4 views from the port's data module (seed 0), latents "
           "2x6x32x32x4, R=160, 512² renders, bf16 frozen backbone, f32 trainables, random "
-          "weights seed 0, no gradient checkpointing",
-          "stand_ins": "seeded image cotangents for the teachers, seeded text and pooled-text "
-          "states for the prompt processor",
+          "weights seed 0, no gradient checkpointing; program G: SD-2.1 base, MVDream 4-view "
+          "(camera) and RichDreamer 768-d (camera, 8 heads) UNets and the MV and SD VAE "
+          "encoders in bf16 on random weights (seed 1), the renderers one after the other; "
+          "the dual prompt processor (OpenCLIP-H and SD-1.5 towers, f32, seed 0)",
+          "teacher_params": teacher_params, "prompt_library": len(data.library["train"]),
+          "prompt_cache_entries": n_cached, "prompt_setup_s": prompts_s,
           "volume": {"rays": data.cfg.ray_height, "patch": trainer.patch_cfg.patch_size,
                      "global_downsample": trainer.patch_cfg.global_downsample,
                      "samples": [trainer.volume_renderer.cfg.num_samples_per_ray_importance,
                                  trainer.volume_renderer.cfg.num_samples_per_ray],
                      "field_chunk": trainer.volume_renderer.cfg.field_chunk},
-          "image_cotangent_scale": IMAGE_COT_SCALE,
+          "fid": fids, "grad_norm_mv": grad_norms, "grad_images_abs_max": grad_image_max,
           "trainable_leaves": len(trainer.trainable),
           "trainable_params": sum(p.numel() for p in trainer.params_train.values()),
           "build_s": build_s, "steps": TRAIN_STEPS, "parts_per_step": cfg.num_parts_training,
@@ -1441,17 +1737,19 @@ def phase_training():
           "images_last_part": images, "total_notfinite": trainer.optimizer.total_notfinite,
           "changed_leaves": len(changed), "max_memory_allocated_bytes": peak_bytes})
     check(stage_share >= 0.95, f"the stage ranges hold only {stage_share:.3f} of the device time")
+    phase_guidance(trainer, batch, info["images"], text, scalars, gen)
     phase_rasterize(trainer, batch, info["space_cache"])
-    phase_volume(trainer, batch, info["space_cache"], text, scalars, gen)
+    phase_volume(trainer, batch, info["space_cache"], text, scalars, gen, info["grad_images"])
+    cache_dir.cleanup()
     return totals
 
 
-def phase_volume(trainer, batch, space_cache, text, scalars, gen):
+def phase_volume(trainer, batch, space_cache, text, scalars, gen, grad_images):
     """CUDA-event ms of one full-width part's second branch: the proposal pass (both
     base renders' SDF-only density and the sampling), the field with normals at the
     fine samples as program R evaluates it, the whole ``render_2nd`` and
-    ``render_backward_2nd``; then ``render_backward_2nd``'s time and peak memory at
-    each ``field_chunk`` of the sweep."""
+    ``render_backward_2nd`` (with program G's image gradients); then
+    ``render_backward_2nd``'s time and peak memory at each ``field_chunk`` of the sweep."""
     from dataclasses import replace
 
     import torch
@@ -1498,9 +1796,6 @@ def phase_volume(trainer, batch, space_cache, text, scalars, gen):
             batch, space_cache, scalars, text["global_21"], "2nd", draws), 3, warmup=1)
     n_rays = {k: int(p.shape[0]) for k, p in zip(renders, positions)}
     intervals = int(positions[0].shape[1])
-    grad_images = {f"{k}_2nd": torch.randn((B, H, H, c), generator=gen, device=ro.device) * 1e-3
-                   for k, c in (("comp_rgb", 3), ("comp_normal_cam_vis", 3), ("disparity", 1))}
-
     def backward():
         return trainer._stage_student_render(batch, space_cache, text, scalars, grad_images,
                                              branch="2nd", draws=draws)

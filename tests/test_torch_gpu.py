@@ -6,8 +6,8 @@ installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -o "markers=gpu: needs a CUDA device" -q --noconftest -p no:cacheprovider
 
-Float32 matmuls run with TF32 off, so the f32 comparisons are against
-full-f32 PyTorch.
+Float32 matmuls and cuDNN convolutions run with TF32 off, so the f32
+comparisons are against full-f32 PyTorch.
 """
 
 import numpy as np
@@ -24,10 +24,10 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     yield torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 def _randn(gen, *shape, dtype=torch.float32, scale=1.0):
@@ -60,8 +60,11 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, BH, L, Lk, D):
     assert (out.float() - ref).abs().max().item() <= tol
 
 
+# the VAE encoders' single-head mid attention with grad in program G: MV at 256² images
+# (32² tokens), SD at 512² (64² tokens)
+ENCODER_CASES = [(8, 1024, 1024, 512), (2, 4096, 4096, 512)]
 BWD_CASES = [(3, 256, 256, 64), (2, 700, 700, 64), (2, 300, 1200, 64), (4, 300, 77, 64),
-             (2, 1, 5, 64), (2, 200, 130, 512)]
+             (2, 1, 5, 64), (2, 200, 130, 512)] + ENCODER_CASES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -642,3 +645,83 @@ def test_plane_sampler_second_order_gradients_on_the_card(cuda):
     ref = eikonal_grad("cpu")
     assert ref.abs().max() > 0
     assert (eikonal_grad("cuda").cpu() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("parallel", [False, True], ids=["one_after_the_other", "stacked"])
+def test_program_g_on_the_card_matches_the_cpu(cuda, parallel):
+    """Program G of small teachers (head dim 64, VAE encoders to 64 channels, 32² latents,
+    so that the MV and SD attention and the encoders' mid attention take the kernels;
+    RichDreamer's 8 heads the einsum path) on the card against the CPU, f32, from the
+    same teacher weights, images, cameras, text states and draws: fid and grad_norm_mv
+    within 1e-3 relative, each image gradient within 1e-3 of its largest value (the
+    kernels and cuDNN sum in other orders, and the "dmd" weighting divides by
+    sqrt(alpha_bar), 0.07 at t = 999)."""
+    from triplaneturbo_torch.data.multiview_multiprompt import (
+        DataModuleConfig,
+        MultiviewMultipromptDataModule,
+    )
+    from triplaneturbo_torch.models.background.hashgrid_env_map import (
+        HashgridBackgroundConfig,
+        HyperNetConfig,
+    )
+    from triplaneturbo_torch.models.guidance.asd_guidance import ASDConfig
+    from triplaneturbo_torch.systems.trainer import TrainerConfig, TriplaneTurboTrainer
+
+    teacher = dict(block_out_channels=(64, 128), layers_per_block=1, attention_head_dim=64,
+                   cross_attention_dim=64)
+    vae = dict(vae_block_out_channels=(32, 64), vae_layers_per_block=1)
+    sizes = {"mv": {**teacher, **vae}, "rd": dict(teacher), "sd": {**teacher, **vae}}
+    sg = dict(block_out_channels=(32, 64), layers_per_block=1, cross_attention_dim=64,
+              attention_head_dim=32, vae_block_out_channels=(16, 32), vae_layers_per_block=1,
+              output_dim=8)
+
+    def build(dev):
+        return TriplaneTurboTrainer.build(
+            TrainerConfig(parallel_guidance=parallel), device=dev, space_generator_overrides=sg,
+            background_cfg=HashgridBackgroundConfig(hypernet=HyperNetConfig(c_dim=64)),
+            teacher_sizes=sizes, teacher_dtype="float32",
+            guidance_cfg=ASDConfig(mv_image_size=64, rd_image_size=32, sd_image_size=64))
+
+    trainers = {"cpu": build("cpu"), "cuda": build("cuda")}
+    for kind in ("mv", "rd", "sd"):
+        src, dst = (getattr(trainers[d].guidance, kind) for d in ("cpu", "cuda"))
+        for a, b in ((src.unet, dst.unet), (src.vae, dst.vae)):
+            if a is not None:
+                b.load_state_dict(a.state_dict())
+    dm = MultiviewMultipromptDataModule(DataModuleConfig(
+        batch_size=8, n_view=4, height=64, width=64, ray_height=32, ray_width=32, n_steps=1),
+        seed=0)
+    host_batch = {k: v for k, v in dm.sample_train_batch()[0].items() if k != "noise"}
+    gen = torch.Generator().manual_seed(8)
+    images = {f"{k}_{side}": torch.rand((8, hw, hw, c), generator=gen)
+              for k, c in (("comp_rgb", 3), ("comp_normal_cam_vis", 3), ("disparity", 1))
+              for side, hw in (("1st", 64), ("2nd", 32))}
+    text = {k: torch.randn((2, 77, 64), generator=gen)
+            for k in ("cond_21", "uncond_21", "cond_15", "uncond_15")}
+    scalars = trainers["cpu"].host_scalars()
+    draws = trainers["cpu"].draw_guidance(
+        MultiviewMultipromptDataModule.to_device(host_batch, "cpu"),
+        torch.Generator().manual_seed(9))
+    outs = {}
+    for dev, tr in trainers.items():
+        counts = (fa.LAUNCHES, fa.LAUNCHES_STATS, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKDV)
+        d = {kind: [x.to(dev) for x in xs] for kind, xs in draws.items()}
+        outs[dev] = tr._stage_teacher({k: v.to(dev) for k, v in images.items()},
+                                      MultiviewMultipromptDataModule.to_device(host_batch, dev),
+                                      {k: v.to(dev) for k, v in text.items()}, scalars, d)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(
+            (fa.LAUNCHES, fa.LAUNCHES_STATS, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKDV), counts))
+        calls = 1 if parallel else 2
+        # 8 kernel sites a MV or SD UNet pass, one encoder mid attention a MV or SD call
+        assert launched == ((0, 0, 0, 0) if dev == "cpu" else
+                            (calls * 2 * 8, calls * 2, calls * 2, calls * 2)), (dev, launched)
+    (fid_c, gn_c), g_c = outs["cuda"]
+    (fid_r, gn_r), g_r = outs["cpu"]
+    assert torch.isfinite(fid_c) and torch.isfinite(gn_c).all()
+    assert abs(float(fid_c) - float(fid_r)) <= 1e-3 * abs(float(fid_r))
+    assert (gn_c.cpu() - gn_r).abs().max().item() <= 1e-3 * gn_r.abs().max().item()
+    for k, ref in g_r.items():
+        got = g_c[k].cpu()
+        assert torch.isfinite(got).all() and ref.abs().max() > 0, k
+        assert (got - ref).abs().max().item() <= 1e-3 * ref.abs().max().item(), k

@@ -460,10 +460,12 @@ def test_trainer_builds_on_cuda_by_default_and_leaves_the_rest_unported():
                                trainer.volume_renderer.cfg.learned_variance_init, rtol=1e-7)
     assert all(p.device.type == "cpu" and bool(torch.isfinite(p).all())
                for p in trainer.params_train.values())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(c\)-\(d\)"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(d\)$"):
         trainer.train_step([], {}, None)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(c\)$"):
-        trainer._stage_teacher([], {}, None)
+    # built without teacher_sizes, the trainer has no teachers: program G refuses
+    assert trainer.guidance is None
+    with pytest.raises(RuntimeError, match="without teachers"):
+        trainer._stage_teacher({}, {}, {}, {}, {})
     # both renderers run: the second branch needs its draws, and a branch by name
     with pytest.raises(ValueError, match="draws"):
         trainer._render_branch(_tiny_batch(), torch.zeros(B, 6, PLANE, PLANE, 4), {

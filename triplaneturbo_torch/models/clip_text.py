@@ -2,7 +2,9 @@
 
 Counterpart of ``triplaneturbo_tpu/models/clip_text.py``: pre-LN causal
 transformer over token ids, returning per-token states and the state at the
-first EOS. Exact GELU; causal mask at -1e9; LayerNorm eps ``cfg.eps``. Its
+first EOS. Causal mask at -1e9; LayerNorm eps ``cfg.eps``. The default is the
+OpenCLIP-H tower with the exact GELU; :func:`sd15_text_config` is the SD-1.5
+tower (width 768, 12 layers, quick GELU) of RichDreamer's text space. Its
 attention is plain PyTorch (causal, 77 tokens), not the flash kernel.
 """
 
@@ -25,8 +27,23 @@ class CLIPTextConfig:
     heads: int = 16
     intermediate: int = 4096
     max_length: int = 77
+    hidden_act: str = "gelu"  # the SD-1.5 tower uses "quick_gelu"
     eps: float = 1e-5
     eos_token_id: int = 49407
+
+
+def sd15_text_config() -> CLIPTextConfig:
+    return CLIPTextConfig(width=768, layers=12, heads=12, intermediate=3072,
+                          hidden_act="quick_gelu")
+
+
+def hidden_act(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The MLP activation: exact GELU, or quick GELU x * sigmoid(1.702 x)."""
+    if name == "gelu":
+        return F.gelu(x, approximate="none")
+    if name == "quick_gelu":
+        return x * torch.sigmoid(1.702 * x)
+    raise ValueError(name)
 
 
 class CLIPAttention(nn.Module):
@@ -58,6 +75,7 @@ class CLIPAttention(nn.Module):
 class CLIPLayer(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
+        self.act = cfg.hidden_act
         self.layer_norm1 = nn.LayerNorm(cfg.width, eps=cfg.eps)
         self.self_attn = CLIPAttention(cfg)
         self.layer_norm2 = nn.LayerNorm(cfg.width, eps=cfg.eps)
@@ -66,7 +84,7 @@ class CLIPLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, causal_mask: torch.Tensor) -> torch.Tensor:
         x = x + self.self_attn(self.layer_norm1(x), causal_mask)
-        h = self.mlp_fc2(F.gelu(self.mlp_fc1(self.layer_norm2(x)), approximate="none"))
+        h = self.mlp_fc2(hidden_act(self.act, self.mlp_fc1(self.layer_norm2(x))))
         return x + h
 
 

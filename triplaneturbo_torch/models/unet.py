@@ -1,11 +1,12 @@
-"""Conditional diffusion UNet (SD-2.1 family): the triplane student.
+"""Conditional diffusion UNet (SD-2.1 family): the triplane student and the teachers.
 
-Counterpart of ``triplaneturbo_tpu/models/unet.py``: the SD-2.1-base UNet
-with hexa self-LoRA, vanilla cross-LoRA, vanilla_v1 LoCon and 6-plane joint
-self-attention. The public ``forward`` keeps the JAX layout
-(``sample [N, H, W, C]``); inside, the convolutions run NCHW. Camera
-conditioning (the MVDream / RichDreamer teachers) exists only as the config
-field; the teacher configs are not ported yet.
+Counterpart of ``triplaneturbo_tpu/models/unet.py``. One module covers four UNets:
+the triplane student (SD-2.1-base with hexa self-LoRA, vanilla cross-LoRA,
+vanilla_v1 LoCon and 6-plane joint self-attention), the SD-2.1 teacher (no
+adapters), MVDream (a 16-d camera embedding added to the time embedding, 4-view
+joint self-attention) and RichDreamer (MVDream's layout over the SD-1.5 768-d
+text space, with a fixed count of 8 heads). The public ``forward`` keeps the JAX
+layout (``sample [N, H, W, C]``); inside, the convolutions run NCHW.
 """
 
 from __future__ import annotations
@@ -39,8 +40,11 @@ class UNetConfig:
     layers_per_block: int = 2
     cross_attention_dim: int = 1024
     attention_head_dim: int = 64  # per-head dim; heads = channels // this
+    # a fixed head count (RichDreamer: 8, so dim_head = channels // 8 at each level);
+    # overrides attention_head_dim
+    attention_num_heads: Optional[int] = None
     transformer_depth: int = 1
-    camera_dim: Optional[int] = None
+    camera_dim: Optional[int] = None  # MVDream / RichDreamer camera conditioning
     adapters: AdapterSpec = NO_ADAPTERS
     locon_type: str = "none"
     locon_rank: int = 16
@@ -57,8 +61,6 @@ class UNet2DConditionModel(nn.Module):
 
     def __init__(self, cfg: UNetConfig = UNetConfig()):
         super().__init__()
-        if cfg.camera_dim is not None:
-            raise ValueError("camera conditioning (teacher UNets) is not ported")
         self.cfg = cfg
         dtype = cfg.dtype
         ch0 = cfg.block_out_channels[0]
@@ -68,12 +70,18 @@ class UNet2DConditionModel(nn.Module):
                       locon_rank=cfg.locon_rank, dtype=dtype)
 
         def attn(ch: int) -> Transformer2D:
-            heads, dim_head = ch // cfg.attention_head_dim, cfg.attention_head_dim
+            if cfg.attention_num_heads is not None:
+                heads, dim_head = cfg.attention_num_heads, ch // cfg.attention_num_heads
+            else:
+                heads, dim_head = ch // cfg.attention_head_dim, cfg.attention_head_dim
             return Transformer2D(ch, heads, dim_head, cfg.transformer_depth,
                                  cfg.cross_attention_dim, adapters=cfg.adapters, dtype=dtype)
 
         self.time_embedding_linear_1 = nn.Linear(ch0, time_dim, dtype=dtype)
         self.time_embedding_linear_2 = nn.Linear(time_dim, time_dim, dtype=dtype)
+        if cfg.camera_dim is not None:
+            self.camera_embedding_linear_1 = nn.Linear(cfg.camera_dim, time_dim, dtype=dtype)
+            self.camera_embedding_linear_2 = nn.Linear(time_dim, time_dim, dtype=dtype)
         self.conv_in = AdaptedConv(cfg.in_channels, ch0, dtype=dtype)
 
         cur = ch0
@@ -111,7 +119,10 @@ class UNet2DConditionModel(nn.Module):
         self.conv_out = AdaptedConv(ch0, cfg.out_channels, dtype=dtype)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor,
+                camera: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``camera`` [N, camera_dim] is added through its embedding when the config
+        has a ``camera_dim``; without one, or without a camera, it is not."""
         cfg = self.cfg
         dtype = cfg.dtype
         n_blocks = len(cfg.block_out_channels)
@@ -121,6 +132,9 @@ class UNet2DConditionModel(nn.Module):
 
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dtype)
         temb = self.time_embedding_linear_2(F.silu(self.time_embedding_linear_1(temb)))
+        if cfg.camera_dim is not None and camera is not None:
+            cemb = F.silu(self.camera_embedding_linear_1(camera.to(dtype)))
+            temb = temb + self.camera_embedding_linear_2(cemb)
         ctx = encoder_hidden_states.to(dtype)
 
         h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
@@ -171,3 +185,21 @@ def sd21_student_config(self_lora_type: str = "hexa_v1", cross_lora_type: str = 
         remat=remat,
         dtype_str=dtype_str,
     )
+
+
+def sd21_teacher_config(dtype_str: str = "bfloat16", remat: bool = False) -> UNetConfig:
+    return UNetConfig(dtype_str=dtype_str, remat=remat)
+
+
+def mvdream_config(dtype_str: str = "bfloat16", remat: bool = False) -> UNetConfig:
+    """MVDream sd-v2.1-base-4view: camera_dim 16, 4-view joint self-attention."""
+    return UNetConfig(camera_dim=16, adapters=AdapterSpec(joint_self_attention=True, joint_group=4),
+                      dtype_str=dtype_str, remat=remat)
+
+
+def richdreamer_config(dtype_str: str = "bfloat16", remat: bool = False) -> UNetConfig:
+    """RichDreamer nd-mv: the SD-1.5 text space (768), camera conditioning, 4-view
+    joint self-attention, a fixed count of 8 heads."""
+    return UNetConfig(cross_attention_dim=768, camera_dim=16, attention_num_heads=8,
+                      adapters=AdapterSpec(joint_self_attention=True, joint_group=4),
+                      dtype_str=dtype_str, remat=remat)

@@ -8,13 +8,14 @@ program per branch (B-R "1st" mesh, "2nd" volume) and ONE generator backward
 cotangents and returns the adapter gradients; ``_stage_update`` then applies
 guarded Adan to the accumulated gradients.
 
-Ported here: program R with both branches, program B-R for the first (mesh
-rasterize) and the second (patch-wrapped NeuS volume) branch, with the
+Ported here: program R with both branches, program G (the three frozen teachers'
+ASD guidance over the six rendered images, with the two renderers' images scored
+one after the other or, with ``parallel_guidance``, stacked), program B-R for the
+first (mesh rasterize) and the second (patch-wrapped NeuS volume) branch, with the
 hash-grid background, the material and the two renderers the trainer owns; B-G
 and the update, with what they stand on (``_denoise_decode``, the timestep
-strata, the host-side schedules, the step metrics). The teachers and
-``train_step`` itself raise ``NotImplementedError`` until they are ported
-(ROADMAP A9 (c)-(d)).
+strata, the host-side schedules, the step metrics). ``train_step`` itself raises
+``NotImplementedError`` until it is ported (ROADMAP A9 (d)).
 
 PyTorch runs eagerly, so a "program" is a method; gradients travel as
 dictionaries keyed by parameter name, the counterpart of the JAX trainable
@@ -23,7 +24,8 @@ under ``background.``, the volume renderer's under ``renderer.``. Random
 draws are explicit arguments: the render and the backward programs of a part
 must see the same noise and the same volume draws (patch origin, sampler
 jitter; :meth:`TriplaneTurboTrainer.draw_volume`), where the JAX package
-derives both programs' keys from one.
+derives both programs' keys from one; program G takes the teachers' draws
+(:meth:`TriplaneTurboTrainer.draw_guidance`).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from ..models.background.hashgrid_env_map import (
     HashgridEnvironmentMapBackground,
 )
 from ..models.geometry.space_generator import SpaceGeneratorConfig
+from ..models.guidance.asd_guidance import ASDConfig, ASDGuidance, GuidanceDraws
 from ..models.geometry.triplane_geometry import (
     TriplaneGeometry,
     TriplaneGeometryConfig,
@@ -67,6 +70,7 @@ from ..models.schedulers import (
 from ..utils.ops import safe_normalize
 from ..utils.schedule import C, schedule_is_zero
 from ..utils.weights import init_random_
+from .builder import build_teacher
 from .optimizers import GuardedAdan
 
 Grads = Dict[str, torch.Tensor]
@@ -108,6 +112,9 @@ class TrainerConfig:
     num_steps_training: int = 4
     gradient_accumulation_steps: int = 1
     prediction_type: str = "epsilon"
+    # program G: the two renderers' images through one teacher pass each (True), or
+    # the renderers one after the other (False, the v1 default: half the activations)
+    parallel_guidance: bool = False
     learning_rate: float = 2e-4
     adan_betas: Tuple[float, float, float] = (0.98, 0.92, 0.99)
     adan_eps: float = 1e-15
@@ -134,9 +141,9 @@ class TrainerConfig:
 
 class TriplaneTurboTrainer:
     """Owns the geometry, the background, the material, the rasterize and the
-    volume renderer with the patch config, the optimizer, ``global_step`` and
-    the training timesteps; runs programs R and B-R, the generator backward and
-    the update."""
+    volume renderer with the patch config, the guidance with its frozen teachers,
+    the optimizer, ``global_step`` and the training timesteps; runs programs R, G
+    and B-R, the generator backward and the update."""
 
     _GUIDANCE_IMAGE_KEYS = ("comp_rgb", "comp_normal_cam_vis", "disparity")
 
@@ -144,7 +151,8 @@ class TriplaneTurboTrainer:
                  background: Optional[HashgridEnvironmentMapBackground] = None,
                  rasterize_renderer: Optional[GenerativeSpaceMeshRasterizeRenderer] = None,
                  volume_renderer: Optional[GenerativeSpaceSDFVolumeRenderer] = None,
-                 patch_cfg: Optional[PatchRendererConfig] = None):
+                 patch_cfg: Optional[PatchRendererConfig] = None,
+                 guidance: Optional[ASDGuidance] = None):
         self.cfg = cfg
         self.geometry = geometry
         self.schedule = schedule
@@ -156,6 +164,7 @@ class TriplaneTurboTrainer:
         self.volume_renderer = volume_renderer or GenerativeSpaceSDFVolumeRenderer().to(device)
         self.patch_cfg = patch_cfg or PatchRendererConfig()
         self.material_fn = NoMaterial()
+        self.guidance = guidance
         self.global_step = 0
         self.rng = np.random.RandomState(0)
         # the optimizer sees only the trainable partition: the geometry's
@@ -187,13 +196,20 @@ class TriplaneTurboTrainer:
               background_cfg: Optional[HashgridBackgroundConfig] = None,
               renderer_cfg: Optional[RasterizeRendererConfig] = None,
               volume_cfg: Optional[VolumeRendererConfig] = None,
-              patch_cfg: Optional[PatchRendererConfig] = None) -> "TriplaneTurboTrainer":
+              patch_cfg: Optional[PatchRendererConfig] = None,
+              teacher_sizes: Optional[Dict[str, Dict[str, Any]]] = None,
+              teacher_dtype: str = "bfloat16",
+              guidance_cfg: Optional[ASDConfig] = None) -> "TriplaneTurboTrainer":
         """A trainer on ``device`` with random weights from ``seed``.
 
         The geometry and the background are built on the meta device and
         materialised on ``device``, so the full-size model never passes
         through host memory. Adapter ``up`` leaves start at zero, as in the
-        JAX package.
+        JAX package. ``teacher_sizes`` ({"mv": {...}, "rd": {...}, "sd": {...}},
+        overrides of each teacher's config, ``{}`` for the full size) builds the
+        three frozen teachers in ``teacher_dtype`` from ``seed + 1``, and the
+        guidance over them; without it the trainer has no teachers and program G
+        raises (programs R, B-R, B-G and the update need none).
         """
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -212,8 +228,16 @@ class TriplaneTurboTrainer:
         volume_renderer = GenerativeSpaceSDFVolumeRenderer(volume_cfg).to(device)
         schedule = make_schedule(SchedulerConfig(prediction_type=cfg.prediction_type),
                                  device=device)
+        guidance = None
+        if teacher_sizes is not None:
+            teacher_gen = torch.Generator(device=device).manual_seed(seed + 1)
+            teachers = {kind: build_teacher(kind, teacher_gen, teacher_sizes.get(kind),
+                                            teacher_dtype, device)
+                        for kind in ("mv", "rd", "sd")}
+            guidance = ASDGuidance(guidance_cfg, schedule=schedule, **teachers)
         return cls(cfg, geometry, schedule, background,
-                   GenerativeSpaceMeshRasterizeRenderer(renderer_cfg), volume_renderer, patch_cfg)
+                   GenerativeSpaceMeshRasterizeRenderer(renderer_cfg), volume_renderer, patch_cfg,
+                   guidance)
 
     # ------------------------------------------------------------------
 
@@ -492,13 +516,84 @@ class TriplaneTurboTrainer:
                  for (n, p), g in zip(self.params_train.items(), grads)}
         return grads, g_space, regu.detach()
 
-    # -- programs that wait for the teachers --------------------------------
+    # -- the teachers: program G ---------------------------------------------
 
-    def _stage_teacher(self, *args, **kwargs):
-        raise NotImplementedError(
-            "program G needs the teachers, ASD guidance and the VAE encoder: ROADMAP A9 (c)")
+    def draw_guidance(self, batch: Dict[str, Any],
+                      generator: torch.Generator) -> Dict[str, List[GuidanceDraws]]:
+        """Program G's draws for one part, on ``generator``'s device: a list a
+        teacher, one call's draws for each renderer in turn, or one for both
+        stacked under ``parallel_guidance``. The timesteps are drawn within the
+        current step's bounds (:meth:`host_scalars`)."""
+        scalars = self.host_scalars()
+        views = batch["c2w"].shape[0]
+        dual = self.cfg.parallel_guidance
+        return {kind: [self.guidance.draw(kind, views, dual, scalars[f"{kind}_min_step"],
+                                          scalars[f"{kind}_max_step"], generator)
+                       for _ in range(1 if dual else 2)]
+                for kind in ("mv", "rd", "sd")}
+
+    def _guidance_losses(self, out_1st: Dict[str, torch.Tensor], out_2nd: Dict[str, torch.Tensor],
+                         batch: Dict[str, Any], text_embeds: Dict[str, torch.Tensor],
+                         scalars: Dict[str, Any], draws: Dict[str, List[GuidanceDraws]]):
+        """The teacher ensemble over both renderers' images: (fid, grad_norm_mv), the
+        latter the MV teacher's ASD gradient norm (of the first renderer's call when
+        they run one after the other, of both, a pair, when stacked)."""
+        g = self.guidance
+        te = text_embeds
+
+        def mv(d, rgb, rgb_2nd):
+            return g.mv_branch(d, rgb, te["cond_21"], te["uncond_21"], batch["c2w"],
+                               scalars["mv_min_step"], scalars["mv_guidance_scale"],
+                               rgb_2nd=rgb_2nd)
+
+        def rd(d, n, disp, n2, disp2):
+            return g.rd_branch(d, n, disp, te["cond_15"], te["uncond_15"], batch["c2w"],
+                               batch["camera_distances_relative"], scalars["rd_min_step"],
+                               scalars["rd_guidance_scale"], normal_2nd=n2, disparity_2nd=disp2)
+
+        def sd(d, rgb, rgb_2nd):
+            return g.sd_branch(d, rgb, te["cond_21"], te["uncond_21"], scalars["sd_min_step"],
+                               scalars["sd_guidance_scale"], rgb_2nd=rgb_2nd)
+
+        fid = 0.0
+        if self.cfg.parallel_guidance:
+            mv_o = mv(draws["mv"][0], out_1st["comp_rgb"], out_2nd["comp_rgb"])
+            rd_o = rd(draws["rd"][0], out_1st["comp_normal_cam_vis"], out_1st["disparity"],
+                      out_2nd["comp_normal_cam_vis"], out_2nd["disparity"])
+            sd_o = sd(draws["sd"][0], out_1st["comp_rgb"], out_2nd["comp_rgb"])
+            for branch in (mv_o, rd_o, sd_o):
+                fid = fid + scalars["lambda_asd"] * branch["loss_asd"][0]
+                fid = fid + scalars["lambda_asd_2nd"] * branch["loss_asd"][1]
+            return fid, mv_o["grad_norm"]
+        gn = None
+        for i, (out, lam) in enumerate(((out_1st, "lambda_asd"), (out_2nd, "lambda_asd_2nd"))):
+            mv_o = mv(draws["mv"][i], out["comp_rgb"], None)
+            rd_o = rd(draws["rd"][i], out["comp_normal_cam_vis"], out["disparity"], None, None)
+            sd_o = sd(draws["sd"][i], out["comp_rgb"], None)
+            fid = fid + scalars[lam] * (mv_o["loss_asd"] + rd_o["loss_asd"] + sd_o["loss_asd"])
+            if gn is None:
+                gn = mv_o["grad_norm"]
+        return fid, gn
+
+    def _stage_teacher(self, images: Dict[str, torch.Tensor], batch: Dict[str, Any],
+                       text_embeds: Dict[str, torch.Tensor], scalars: Dict[str, Any],
+                       draws: Dict[str, List[GuidanceDraws]]):
+        """Program G: the teacher ensemble over program R's six images (range
+        ``teacher``). Returns ((fid, grad_norm_mv), grad_images): d(fid)/d(image) for
+        each image, from the images detached, so that nothing upstream of them is
+        reached; the teachers run without grad."""
+        if self.guidance is None:
+            raise RuntimeError("the trainer was built without teachers (teacher_sizes)")
+        imgs = {k: v.detach().requires_grad_() for k, v in images.items()}
+        with record_function("teacher"), torch.enable_grad():
+            o1 = {name: imgs[f"{name}_1st"] for name in self._GUIDANCE_IMAGE_KEYS}
+            o2 = {name: imgs[f"{name}_2nd"] for name in self._GUIDANCE_IMAGE_KEYS}
+            fid, gn = self._guidance_losses(o1, o2, batch, text_embeds, scalars, draws)
+            grads = torch.autograd.grad(fid, list(imgs.values()), allow_unused=True)
+        grad_images = {k: torch.zeros_like(v) if g is None else g
+                       for (k, v), g in zip(imgs.items(), grads)}
+        return (fid.detach(), gn.detach()), grad_images
 
     def train_step(self, batch_list: Sequence[Dict[str, Any]], text_embeds: Dict[str, Any],
                    generator: torch.Generator):
-        raise NotImplementedError(
-            "train_step needs program G and the launcher: ROADMAP A9 (c)-(d)")
+        raise NotImplementedError("train_step needs the host loop and the launcher: ROADMAP A9 (d)")
