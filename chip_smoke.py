@@ -74,7 +74,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                8 heads take the einsum path), the renderers one after the other and
                stacked, on the card against the CPU from the same teacher weights,
                images, cameras, text states and draws: fid, grad_norm_mv and the six
-               image gradients, with exact launch counts.
+               image gradients, with exact launch counts; and one whole ``train_step`` of
+               the small model (2 parts of 2 prompts x 4 views at 64², 32² rays, those
+               teachers), staged and monolithic, on the card against the CPU from the
+               same weights, step-batches, text states and draws, the CPU taking the
+               card's sample boundaries, downsampled rays, space caches and grid values
+               (with its own gradients): the metrics, every leaf's gradient of the step
+               and every trainable leaf after the update.
 6. pipeline -- prompt -> textured mesh at full width (SD-2.1 student UNet, OpenCLIP-H
                text tower, retrofitted VAE, R=160 marching cubes) in bf16 on random
                weights from a seed: one warm-up prompt and three timed prompts through
@@ -82,27 +88,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
                after, an exported OBJ, then one more ``__call__`` prompt under
                ``torch.profiler``: device-busy ms of each stage (the pipeline's
                ``record_function`` ranges), the idle share and the heaviest kernels.
-7. training -- the student's training step at full width as far as it is ported, the
-               v1 recipe: two prompts x four views from the port's data module (seed 0),
-               bf16 frozen backbone, f32 trainables, R=160, 512² mesh renders, 128² rays
-               for the volume renderer (a 42² global render and one 40² patch, 128
-               proposal and 64 fine samples a ray, the variance not trained), the
-               hash-grid background (c_dim 1024), the v1 loss's second-branch sparsity
-               and eikonal terms; the three frozen teachers in bf16 (SD-2.1 base,
-               MVDream 4-view with camera, RichDreamer 768-d with camera, and the MV and
-               SD VAE encoders), and the dual prompt processor (OpenCLIP-H and SD-1.5
-               towers, its cache in a temporary directory), which encodes the data
-               module's training prompts. Steps of four parts, each part program R
-               (no-grad generator forward and both renders), program G (the teachers
-               over the six images, the renderers one after the other: fid,
-               grad_norm_mv and the image gradients), program B-R "1st" and program
-               B-R "2nd" with G's gradients (each render's forward and backward from
-               the detached space cache: the field MLPs', the background's, the
-               variance's and the space cache's gradients; R and B-R "2nd" take the
-               same draws), and program B-G with the two branches' space-cache
-               cotangents; then the update. Launch counts of all five kernels are
-               asserted for every part; one more part runs under ``torch.profiler``
-               (device-busy ms of each program's range). Then the ``guidance`` line:
+7. launcher -- ``python3 -m triplaneturbo_torch.launch`` through ``launch.main`` on the
+               card, ``configs/smoke_tiny.yaml`` widened to the small kernel-taking model:
+               ``--train`` for 2 steps (every kernel launched), ``--resume`` from its
+               step-2 checkpoint for one more (the restored trainable partition, Adan
+               state and step bit-equal to the saved ones), ``--validate`` (4 views: the
+               grid PNG and the turntable) and ``--export`` (a non-empty OBJ a prompt).
+8. training -- the v1 recipe at full width through the port's launcher: ``launch.main``
+               with ``configs/triplaneturbo_v1.yaml`` as written (gradient checkpointing
+               on) but for the log, checkpoint and validation intervals and
+               ``field_chunk``, for three steps of ``train_step``: two prompts x four
+               views from the data module, bf16 frozen backbone, f32 trainables, R=160,
+               512² mesh renders, 128² rays for the volume renderer (a 42² global render
+               and one 40² patch, 128 proposal and 64 fine samples a ray, the variance not
+               trained), the hash-grid background (c_dim 1024), the v1 loss; the three
+               frozen teachers in bf16 (SD-2.1 base, MVDream 4-view with camera,
+               RichDreamer 768-d with camera, and the MV and SD VAE encoders), and the
+               dual prompt processor (OpenCLIP-H and SD-1.5 towers, its cache in the
+               temporary experiment directory). Each step's host ms and launch counts
+               (all five kernels, asserted) are read around ``train_step``; then
+               ``metrics.jsonl`` (a finite line a step), the step-2 checkpoint (bit-equal
+               to the partition it was saved from), which leaves moved, one part through
+               the trainer's staged loop under ``torch.profiler`` (device-busy ms of each
+               program's range), and one validation prompt's turntable (40 views at 512²:
+               ``render_eval_views`` and ``save_eval_artifacts``, CUDA events). Then the ``guidance`` line:
                CUDA-event ms of one part's program G and of its pieces (each teacher's
                UNet passes, the encoders' forward and backward, RichDreamer's einsum
                attention); the ``rasterize`` line: CUDA-event ms of one 512²
@@ -210,15 +219,34 @@ STAGES = ("text_encoder", "denoise", "vae_decode", "field_grid", "marching_cubes
 TRAIN_STAGES = ("generator_forward", "render_1st", "render_2nd", "teacher",
                 "render_backward_1st", "render_backward_2nd", "generator_backward")
 TRAIN_STEPS = 3  # one warm-up step and two timed ones, four parts each
-# the three teachers at full width (SD-2.1 base, MVDream 4-view, RichDreamer 768-d)
-FULL_TEACHERS = {"mv": {}, "rd": {}, "sd": {}}
-# the v1 recipe's second-branch loss terms and rgb shrink (configs/triplaneturbo_v1.yaml)
-V1_LOSS = dict(lambda_sparsity_2nd=[0, 1.0, 0.0, 20000], lambda_eikonal_2nd=[0, 1.0, 0.0, 20000])
-V1_RGB_GRAD_SHRINK = [0, 1.0, 0.01, 20000]
 # samples a view that the volume renderer's field with normals takes at once; chosen
 # from the volume line's sweep of render_backward_2nd (PERF.md, section 5)
 FIELD_CHUNK = 65536
 FIELD_CHUNK_SWEEP = (32768, 65536, 131072)
+# the training phase: configs/triplaneturbo_v1.yaml as written through the port's launcher,
+# but for these overrides (and exp_root_dir, a temporary directory)
+TRAIN_CONFIG = "configs/triplaneturbo_v1.yaml"
+TRAIN_CKPT_STEP = 2
+TRAIN_OVERRIDES = ["trainer.log_every_n_steps=1", f"trainer.checkpoint_every={TRAIN_CKPT_STEP}",
+                   "trainer.val_check_interval=0",
+                   f"system.renderer_2nd.field_chunk={FIELD_CHUNK}"]
+# Launches a part of the v1 step, whose generator runs with gradient_checkpoint:
+# - program R (no grad) takes the plain forward once at each of the generator's 26 sites
+#   (FLASH_PER_PASS: the UNet's 25 and the VAE decoder's mid attention);
+# - program G takes it once per MV and SD teacher site for each renderer's images, and the
+#   stats forward, dq and dk/dv once per MV and SD encoder call (2 teachers x 2 renderers);
+# - program B-G runs each checkpointed UNet block's forward twice with grad (once dropping
+#   what it saves, once in the backward) and its backward once, and decodes the six planes
+#   one by one, each under its own checkpoint (6 mid attentions in place of 1): the stats
+#   forward 2 x 31, dq and dk/dv 31 each;
+# - the field grid runs once per prompt in R and once per prompt in B-R "1st".
+BG_FLASH_SITES = (FLASH_PER_PASS - 1) + 6  # 31
+ENCODER_CALLS = 2 * 2
+LAUNCHES_PER_PART = {"flash_attn_fwd": FLASH_PER_PASS + 2 * (MV_FLASH_PER_PASS + SD_FLASH_PER_PASS),
+                     "flash_attn_fwd_stats": 2 * BG_FLASH_SITES + ENCODER_CALLS,
+                     "flash_attn_bwd_dq": BG_FLASH_SITES + ENCODER_CALLS,
+                     "flash_attn_bwd_dkdv": BG_FLASH_SITES + ENCODER_CALLS,
+                     "field_grid": 2 * TRAIN_PROMPTS}
 
 
 def emit(obj) -> None:
@@ -700,6 +728,12 @@ SMALL_KW = dict(latent_resolution=16, isosurface_resolution=64)
 # online softmax, cuDNN's convolution algorithms) and the DDIM step divides x0 by
 # sqrt(alpha_bar) = 0.07 at t = 999, which amplifies those last-digit differences.
 SMALL_REL_TOL = 1e-3
+# the small model's whole train_step, card against CPU: the metrics, and every trainable
+# leaf after the update, of its largest value
+WHOLE_STEP_TOL = 1e-4
+# ... and each leaf's gradient of the step, of its largest value (PR 10's run measured up
+# to 1.7e-3, through the random mesh's thin faces)
+WHOLE_STEP_GRAD_TOL = 5e-3
 
 
 def phase_reference():
@@ -930,28 +964,58 @@ def _rel(got, ref, what: str) -> float:
     return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-12)).item()
 
 
-def _volume_against_cpu(on_card, on_cpu):
+def _value_replay(owner, name):
+    """Wrappers of ``owner.name`` that record the card's outputs and make the CPU's return
+    the card's values, call for call, with the CPU's own gradient. Returns (original,
+    recording, replaying, the card's outputs, the CPU's own)."""
+    fn = getattr(owner, name)
+    card, own = [], []
+
+    def recording(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        card.append(tuple(x.detach() for x in (out if isinstance(out, tuple) else (out,))))
+        return out
+
+    def replaying(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        mine = out if isinstance(out, tuple) else (out,)
+        own.append(tuple(x.detach() for x in mine))
+        vals = tuple(x + (c.cpu() - x).detach() for x, c in zip(mine, card[len(own) - 1]))
+        return vals if isinstance(out, tuple) else vals[0]
+    return fn, recording, replaying, card, own
+
+
+def _volume_against_cpu(on_card, on_cpu, step=False):
     """Run ``on_card`` and then ``on_cpu``, the CPU's volume renders taking the card's
     sample boundaries and the card's downsampled rays: ``importance_sampling`` and the
     patch renderer's ``resize`` are wrapped so that the card's calls are recorded and the
     CPU's return the card's results, call for call (a resize that enlarges, of the
-    images, is not replayed).
+    images, is not replayed). With ``step`` (a whole training step), the space cache that
+    the generator decodes and the SDF and deformation on the grid too: the CPU's take the
+    card's values and keep their own gradient.
 
     The renders are then the same function of the same points on both. The two inputs
     are held apart, since the renders' derivatives jump where they change: a sample
     boundary comes from an inverse CDF whose values near 1 are rounded to 6e-8, and one
     in an interval of little mass moves by that over the mass; the antialiased resize
     rounds otherwise on the card; and a sample moved by a rounding lands, now and then,
-    across a texel edge or a ReLU kink of the field, where the analytic normal jumps.
+    across a texel edge or a ReLU kink of the field, where the analytic normal jumps --
+    as does one whose space cache moved by the generator's rounding. Marching cubes
+    places a vertex at sdf_a / (sdf_a - sdf_b) of a grid edge, which divides the field's
+    rounding by the SDF's step there, and the deformation's gradient moves with it.
     Returns (card result, CPU result, agreement of the inputs: the share of the CPU's own
-    boundaries within 1e-4 of the card's, the largest difference, and the largest
-    difference of the downsampled rays)."""
+    boundaries within 1e-4 of the card's, the largest difference, the largest
+    difference of the downsampled rays and, with ``step``, of the grid values, and the
+    largest difference of the space cache over its largest value)."""
     import torch
+    from triplaneturbo_torch.models.geometry import triplane_geometry as tg
     from triplaneturbo_torch.models.renderers import patch_renderer as pr
     from triplaneturbo_torch.models.renderers import volume_renderer as vr
 
     sample, resize = vr.importance_sampling, pr.resize
     card, cpu_own, card_rays, cpu_rays = [], [], [], []
+    replays = {name: _value_replay(tg.TriplaneGeometry, name)
+               for name in ("decode", "forward_field_grid")} if step else {}
 
     def recording(*args, **kwargs):
         card.append(sample(*args, **kwargs))
@@ -976,23 +1040,44 @@ def _volume_against_cpu(on_card, on_cpu):
 
     try:
         vr.importance_sampling, pr.resize = recording, recording_rays
+        for name, (_, rec, _, _, _) in replays.items():
+            setattr(tg.TriplaneGeometry, name, rec)
         got = on_card()
         torch.cuda.synchronize()
         vr.importance_sampling, pr.resize = replaying, replaying_rays
+        for name, (_, _, rep, _, _) in replays.items():
+            setattr(tg.TriplaneGeometry, name, rep)
         ref = on_cpu()
     finally:
         vr.importance_sampling, pr.resize = sample, resize
-    check(len(card) == len(cpu_own) > 0 and len(card_rays) == len(cpu_rays) > 0,
+        for name, (fn, _, _, _, _) in replays.items():
+            setattr(tg.TriplaneGeometry, name, fn)
+    check(len(card) == len(cpu_own) > 0 and len(card_rays) == len(cpu_rays) > 0
+          and all(len(c) == len(o) > 0 for _, _, _, c, o in replays.values()),
           f"the card sampled {len(card)} and resized {len(card_rays)} times, the CPU "
-          f"{len(cpu_own)} and {len(cpu_rays)}")
+          f"{len(cpu_own)} and {len(cpu_rays)}; replayed "
+          f"{({k: (len(v[3]), len(v[4])) for k, v in replays.items()})}")
     diffs = torch.cat([(c[0].cpu() - o[0]).abs().flatten() for c, o in zip(card, cpu_own)])
     agree = {"boundaries": int(diffs.numel()),
              "share_within_1e-4": float((diffs <= 1e-4).float().mean()),
              "max_abs_diff": float(diffs.max()),
              "rays_max_abs_diff": max(float((c.cpu() - o).abs().max())
                                       for c, o in zip(card_rays, cpu_rays))}
-    check(agree["share_within_1e-4"] >= 0.99 and agree["rays_max_abs_diff"] <= 1e-5,
-          f"the card's and the CPU's samplers or resized rays disagree: {agree}")
+    if step:
+        _, _, _, card_grid, cpu_grid = replays["forward_field_grid"]
+        agree["grid_calls"] = len(card_grid)
+        agree["grid_max_abs_diff"] = max(float((c.cpu() - o).abs().max())
+                                         for cs, os_ in zip(card_grid, cpu_grid)
+                                         for c, o in zip(cs, os_))
+        _, _, _, card_cache, cpu_cache = replays["decode"]
+        agree["space_cache_calls"] = len(card_cache)
+        agree["space_cache_rel_diff"] = max(_rel(c[0], o[0], "space cache")
+                                            for c, o in zip(card_cache, cpu_cache))
+    check(agree["share_within_1e-4"] >= 0.99 and agree["rays_max_abs_diff"] <= 1e-5
+          and agree.get("grid_max_abs_diff", 0.0) <= TOL[("field_grid", "float32")]
+          and agree.get("space_cache_rel_diff", 0.0) <= SMALL_REL_TOL,
+          f"the card's and the CPU's samplers, resized rays, grid values or space caches "
+          f"disagree: {agree}")
     return got, ref, agree
 
 
@@ -1100,6 +1185,137 @@ def _small_program_g():
               f"{parallel}): card against CPU rel err {row['worst_rel_err']}: {row}")
         rows["stacked" if parallel else "one_after_the_other"] = row
         del trainers, outs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _small_train_step():
+    """One ``train_step`` of the small model (head dim 64, 64-channel planes, teachers that
+    take the kernels; 2 parts of 2 prompts x 4 views at 64², 32² rays), staged and
+    monolithic, on the card (kernels) against the CPU (plain versions), f32, from the same
+    weights, step-batches, text states and draws; the CPU's volume renders take the card's
+    sample boundaries, downsampled rays, space caches and grid values (their gradients its
+    own; ``_volume_against_cpu``). Held within WHOLE_STEP_TOL: each metric, and every
+    trainable leaf after the update. Adan's first step moves an element by the learning
+    rate times the sign of its gradient, so an element whose CPU gradient is under 1e-2
+    of its leaf's largest (the CPU tests' rule) may move either way: it is held within
+    four learning rates more. Held within WHOLE_STEP_GRAD_TOL: each leaf's gradient of
+    the step (Adan's ``prev_grad``) on the card against the CPU; the mesh branch's vertex
+    gradients pass through the barycentrics of the random field's thin faces, which
+    divide a vertex's last bit by their area."""
+    import torch
+    from triplaneturbo_torch.data.multiview_multiprompt import (
+        DataModuleConfig,
+        MultiviewMultipromptDataModule,
+    )
+    from triplaneturbo_torch.models.background.hashgrid_env_map import (
+        HashgridBackgroundConfig,
+        HyperNetConfig,
+    )
+    from triplaneturbo_torch.models.guidance.asd_guidance import ASDConfig
+    from triplaneturbo_torch.models.renderers.patch_renderer import PatchRendererConfig
+    from triplaneturbo_torch.models.renderers.rasterize_renderer import RasterizeRendererConfig
+    from triplaneturbo_torch.models.renderers.volume_renderer import VolumeRendererConfig
+    from triplaneturbo_torch.systems.trainer import (
+        LossConfig,
+        PartDraws,
+        TrainerConfig,
+        TriplaneTurboTrainer,
+    )
+
+    reset_counts, read_counts = _count_launches()
+    parts = 2
+
+    def build(device, auto_grad):
+        loss = LossConfig(lambda_sparsity_2nd=0.3, lambda_opaque_2nd=0.2,
+                          lambda_z_variance_2nd=0.5, lambda_eikonal_2nd=0.1,
+                          lambda_orient_2nd=2.0, lambda_sdf_abs=0.4)
+        return TriplaneTurboTrainer.build(
+            TrainerConfig(auto_grad=auto_grad, num_parts_training=parts,
+                          num_steps_training=parts, loss=loss), seed=0, device=device,
+            space_generator_overrides=SMALL_SG,
+            background_cfg=HashgridBackgroundConfig(
+                hypernet=HyperNetConfig(c_dim=SMALL_SG["cross_attention_dim"])),
+            renderer_cfg=RasterizeRendererConfig(**SMALL_RENDER),
+            volume_cfg=VolumeRendererConfig(**SMALL_VOLUME),
+            patch_cfg=PatchRendererConfig(**SMALL_PATCH), teacher_sizes=SMALL_TEACHERS,
+            teacher_dtype="float32", guidance_cfg=ASDConfig(**SMALL_GUIDANCE))
+
+    hw1, hw2 = SMALL_G_HW
+    r = SMALL_KW["latent_resolution"]
+    dm = MultiviewMultipromptDataModule(DataModuleConfig(
+        batch_size=8, n_view=4, height=hw1, width=hw1, ray_height=hw2, ray_width=hw2,
+        n_steps=parts, dim_gaussian=(6, 4, r, r)), seed=0)
+    batch_list = dm.sample_train_batch()
+    gen = torch.Generator().manual_seed(11)
+    text = {k: torch.randn((2, 77, SMALL_TEACHER["cross_attention_dim"]), generator=gen)
+            for k in ("cond_local", "cond_21", "uncond_21", "cond_15", "uncond_15")}
+    text["global_21"] = torch.randn((2, SMALL_SG["cross_attention_dim"]), generator=gen)
+    rows = {}
+    for auto_grad in (True, False):
+        trainers = {dev: build(dev, auto_grad) for dev in ("cpu", "cuda")}
+        src, dst = trainers["cpu"], trainers["cuda"]
+        gen = torch.Generator().manual_seed(12)  # the same weights for both steps
+        with torch.no_grad():
+            for n, p in src.geometry.named_parameters():
+                if n.endswith(".up") or ".up." in n:
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+        for name in ("geometry", "background", "volume_renderer"):
+            getattr(dst, name).load_state_dict(getattr(src, name).state_dict())
+        for kind in ("mv", "rd", "sd"):
+            for m_src, m_dst in zip(getattr(src.guidance, kind), getattr(dst.guidance, kind)):
+                if m_src is not None:
+                    m_dst.load_state_dict(m_src.state_dict())
+        batches = [MultiviewMultipromptDataModule.to_device(
+            {k: v for k, v in b.items() if k != "noise"}, "cpu") for b in batch_list]
+        draws = [src.draw_part(b, batch_list[0]["noise"].shape,
+                               torch.Generator().manual_seed(20 + i))
+                 for i, b in enumerate(batches)]
+        card_draws = [PartDraws(d.noise.cuda(), _draws_to(d.volume, "cuda"),
+                                _draws_on(d.guidance, "cuda")) for d in draws]
+        m_cuda, m_cpu = [None], [None]
+        reset_counts()
+
+        def on_card():
+            m_cuda[0] = dst.train_step(batch_list, {k: v.cuda() for k, v in text.items()},
+                                       draws=card_draws)
+
+        def on_cpu():
+            m_cpu[0] = src.train_step(batch_list, text, draws=draws)
+
+        _, _, sampler = _volume_against_cpu(on_card, on_cpu, step=True)
+        launches = read_counts()
+        check(all(v > 0 for v in launches.values()),
+              f"train_reference whole step (auto_grad {auto_grad}): launches {launches}")
+        row = {"launches": launches, "sampler": sampler, "metrics": {}, "grads": {},
+               "params": {}}
+        for k, ref in m_cpu[0].items():
+            got, ref = float(m_cuda[0][k]), float(ref)
+            check(math.isfinite(got), f"train_reference whole step: non-finite {k} on the card")
+            row["metrics"][k] = abs(got - ref) / max(abs(ref), 1e-12)
+        unsettled = total = 0
+        lr = src.cfg.learning_rate
+        for (n, p_ref), p_got in zip(src.params_train.items(), dst.params_train.values()):
+            g_ref = src.optimizer.adan.state[p_ref]["prev_grad"]
+            g_got = dst.optimizer.adan.state[p_got]["prev_grad"]
+            row["grads"][n] = _rel(g_got, g_ref, f"gradient {n}")
+            loose = g_ref.abs() < 1e-2 * g_ref.abs().max()  # from the CPU's gradient alone
+            total += loose.numel()
+            unsettled += int(loose.sum())
+            diff = (p_got.detach().cpu() - p_ref.detach()).abs() - 4 * lr * loose
+            row["params"][n] = (diff.max().clamp_min(0)
+                                / p_ref.detach().abs().max().clamp_min(lr)).item()
+        worst = {k: max(row[k].values()) for k in ("metrics", "grads", "params")}
+        row.update(worst_rel_err=worst, unsettled_elements=unsettled, elements=total,
+                   loss=[float(m_cuda[0]["loss"]), float(m_cpu[0]["loss"])])
+        for k in ("grads", "params"):  # the five worst leaves of each
+            row[k] = dict(sorted(row[k].items(), key=lambda kv: -kv[1])[:5])
+        name = "staged" if auto_grad else "monolithic"
+        rows[name] = row
+        check(worst["metrics"] <= WHOLE_STEP_TOL and worst["params"] <= WHOLE_STEP_TOL
+              and worst["grads"] <= WHOLE_STEP_GRAD_TOL,
+              f"train_reference whole step ({name}): card against CPU {row}")
+        del trainers, src, dst
         torch.cuda.empty_cache()
     return rows
 
@@ -1285,12 +1501,15 @@ def phase_train_reference():
         f"train_reference: checkpointed launches {launches['cuda_checkpoint']}, plain {n_sites}")
 
     teacher_rows = _small_program_g()
+    step_rows = _small_train_step()
     row = {"phase": "train_reference", "what": "small model, program B-R \"1st\" (R=16, 2x2 "
            "views at 64²), program B-R \"2nd\" (16² rays: 5² global, 8² patch, 32 + 32 "
            "samples), program G (2 prompts x 4 views, 64² and 32² images, teachers of 64 and "
            "128 channels, head dim 64, encoders to 64 channels), program B-G + guarded Adan "
-           "update, card (kernels) vs CPU (plain), f32",
-           "rel_tol": SMALL_REL_TOL, "teacher": teacher_rows, "render_backward_1st": br_row,
+           "update, and one whole train_step (2 parts, staged and monolithic), card (kernels) "
+           "vs CPU (plain), f32",
+           "rel_tol": SMALL_REL_TOL, "teacher": teacher_rows, "train_step": step_rows,
+           "render_backward_1st": br_row,
            "render_backward_1st_worst_rel_err": worst_br, "render_backward_2nd": br2_row,
            "render_backward_2nd_worst_rel_err": worst_br2, "launches": launches,
            "leaves": len(grads["cpu"])}
@@ -1326,41 +1545,6 @@ def phase_train_reference():
     emit(row)
     del trainers
     torch.cuda.empty_cache()
-
-
-def _training_part(trainer, batch, latent, t, text, scalars, gen):
-    """One denoise part of the staged step, as far as it is ported.
-
-    Program R (no-grad generator forward, both renders), program G (the three teachers
-    over R's six images, the renderers one after the other), programs B-R "1st" and
-    "2nd" with G's image gradients (field MLP, background and variance gradients, and
-    each branch's space-cache cotangent; "2nd" with R's draws), and program B-G with the
-    two cotangents: the JAX package's ``_train_step_staged`` order. Returns the next
-    latent, the part's gradients for every trainable leaf, and what the checks read.
-    """
-    import torch
-
-    noise = torch.randn(latent.shape, generator=gen, device=latent.device)
-    draws = trainer.draw_volume(batch, gen)
-    guidance_draws = trainer.draw_guidance(batch, gen)
-    denoised, space_cache, images, overflow = trainer._stage_render(batch, latent, t, text,
-                                                                    scalars, noise, draws)
-    (fid, grad_norm_mv), grad_images = trainer._stage_teacher(images, batch, text, scalars,
-                                                              guidance_draws)
-    grads, g_space_1st, _ = trainer._stage_student_render(batch, space_cache, text, scalars,
-                                                          grad_images, branch="1st")
-    grads_2nd, g_space_2nd, regu_2nd = trainer._stage_student_render(
-        batch, space_cache, text, scalars, grad_images, branch="2nd", draws=draws)
-    grads_g = trainer._stage_student_space(latent, t, text, g_space_1st, g_space_2nd, noise)
-    for n in grads:
-        grads[n].add_(grads_2nd[n]).add_(grads_g[n])
-    info = {"images": images, "overflow": overflow, "space_cache": space_cache,
-            "fid": fid, "grad_norm_mv": grad_norm_mv, "grad_images": grad_images,
-            "g_space_1st_abs_max": g_space_1st.abs().max(),
-            "g_space_1st_finite": torch.isfinite(g_space_1st).all(),
-            "g_space_2nd_abs_max": g_space_2nd.abs().max(),
-            "g_space_2nd_finite": torch.isfinite(g_space_2nd).all(), "regu_2nd": regu_2nd}
-    return denoised.detach(), grads, info
 
 
 def phase_guidance(trainer, batch, images, text, scalars, gen):
@@ -1516,39 +1700,89 @@ def phase_rasterize(trainer, batch, space_cache):
     return row
 
 
+def _count_launches():
+    """(reset, read) of the five kernels' launch counts."""
+    from triplaneturbo_torch.ops import field_grid as fg
+    from triplaneturbo_torch.ops import flash_attention as fa
+
+    def reset():
+        fa.LAUNCHES = fa.LAUNCHES_STATS = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKDV = 0
+        fg.LAUNCHES = 0
+
+    def read():
+        return {"flash_attn_fwd": fa.LAUNCHES, "flash_attn_fwd_stats": fa.LAUNCHES_STATS,
+                "flash_attn_bwd_dq": fa.LAUNCHES_BWD_DQ, "flash_attn_bwd_dkdv": fa.LAUNCHES_BWD_DKDV,
+                "field_grid": fg.LAUNCHES}
+    return reset, read
+
+
 def phase_training():
-    """The student's training step at full width as far as it is ported: 2 prompts x 4
-    views, bf16, R = 160, 512² renders, the three teachers and the dual prompt
-    processor."""
+    """The v1 recipe at full width through the port's launcher: ``launch.main`` with
+    ``configs/triplaneturbo_v1.yaml`` for TRAIN_STEPS steps of ``train_step`` (staged,
+    gradient checkpointing on), every step's launch counts and host ms read around it;
+    the metrics log and the checkpoint; one profiled part; the guidance, rasterize and
+    volume lines on the returned trainer; one validation prompt's turntable."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as profiler
+    from triplaneturbo_torch import launch
     from triplaneturbo_torch.data.multiview_multiprompt import (
         DataModuleConfig,
         MultiviewMultipromptDataModule,
     )
-    from triplaneturbo_torch.models.renderers.volume_renderer import VolumeRendererConfig
-    from triplaneturbo_torch.ops import field_grid as fg
-    from triplaneturbo_torch.ops import flash_attention as fa
-    from triplaneturbo_torch.systems.prompt_setup import build_prompt_setup
-    from triplaneturbo_torch.systems.trainer import (
-        LossConfig,
-        TrainerConfig,
-        TriplaneTurboTrainer,
-        sample_timesteps,
-    )
+    from triplaneturbo_torch.systems import prompt_setup
+    from triplaneturbo_torch.systems.trainer import TriplaneTurboTrainer
+    from triplaneturbo_torch.utils.config import load_config, parse_structured
+
+    reset_counts, read_counts = _count_launches()
+    tmp = tempfile.TemporaryDirectory()
+    steps, seen = [], {}
+    step_fn, setup_fn = TriplaneTurboTrainer.train_step, prompt_setup.build_prompt_setup
+
+    def counted_step(trainer, batch_list, text_embeds, generator=None, draws=None):
+        if not steps:  # kept on the host, so that the copy does not count in the peak
+            seen["before"] = {n: p.detach().cpu().clone() for n, p in _named_params(trainer)}
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        metrics = step_fn(trainer, batch_list, text_embeds, generator, draws)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t) * 1e3, "launches": read_counts(),
+                      "loss": float(metrics["loss"])})
+        seen.update(batch_list=batch_list, text=text_embeds, generator=generator)
+        if trainer.global_step == TRAIN_CKPT_STEP:
+            seen["ckpt_params"] = {n: p.detach().cpu().clone()
+                                   for n, p in trainer.params_train.items()}
+        return metrics
+
+    def capturing_setup(*args, **kwargs):
+        out = setup_fn(*args, **kwargs)
+        seen["embeds_for"] = out[1]
+        return out
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    TriplaneTurboTrainer.train_step, prompt_setup.build_prompt_setup = counted_step, capturing_setup
     t0 = time.perf_counter()
-    trainer = TriplaneTurboTrainer.build(
-        TrainerConfig(loss=LossConfig(**V1_LOSS), rgb_grad_shrink=V1_RGB_GRAD_SHRINK), seed=0,
-        device="cuda", space_generator_overrides=dict(dtype_str="bfloat16"),
-        volume_cfg=VolumeRendererConfig(trainable_variance=False, field_chunk=FIELD_CHUNK),
-        teacher_sizes=FULL_TEACHERS, teacher_dtype="bfloat16")
+    try:
+        trainer = launch.main(["--config", str(REPO / TRAIN_CONFIG), "--train", "--max-steps",
+                               str(TRAIN_STEPS), *TRAIN_OVERRIDES, f"exp_root_dir={tmp.name}"])
+    finally:
+        TriplaneTurboTrainer.train_step, prompt_setup.build_prompt_setup = step_fn, setup_fn
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    launcher_s = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated()
     cfg = trainer.cfg
+    n = cfg.num_parts_training
+    expected = {k: v * n for k, v in LAUNCHES_PER_PART.items()}
+
+    # what the recipe asks for, read back from the trainer the launcher built
+    geo_cfg = trainer.geometry.cfg.space_generator
+    check(cfg.auto_grad and geo_cfg.gradient_checkpoint and geo_cfg.dtype_str == "bfloat16"
+          and trainer.volume_renderer.cfg.field_chunk == FIELD_CHUNK
+          and not trainer.volume_renderer.cfg.trainable_variance,
+          f"training: the launcher's trainer is not the v1 recipe: {cfg}, {geo_cfg}")
     g = trainer.guidance
     teacher_params = {kind: sum(p.numel() for m in getattr(g, kind) if m is not None
                                 for p in m.parameters()) for kind in ("mv", "rd", "sd")}
@@ -1558,138 +1792,69 @@ def phase_training():
                 check(all(p.dtype == torch.bfloat16 and not p.requires_grad
                           for p in m.parameters()), f"training: the {kind} teacher is not "
                       "frozen in bf16")
-    data = MultiviewMultipromptDataModule(DataModuleConfig(), seed=0)
-    check(data.cfg.batch_size == TRAIN_PROMPTS * data.cfg.n_view
-          and data.cfg.n_steps == cfg.num_parts_training, "training: data module config")
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    # the dual prompt processor (the OpenCLIP-H SD-2.1 tower and the SD-1.5 tower, random
-    # weights from seed 0) encodes the data module's whole training library into its cache
-    cache_dir = tempfile.TemporaryDirectory()
-    t0 = time.perf_counter()
-    processor, embeds_for = build_prompt_setup(1024, seed=0, device="cuda",
-                                               cache_dir=cache_dir.name)
-    processor.prepare_text_embeddings(list(data.library["train"]))
-    torch.cuda.synchronize()
-    prompts_s = time.perf_counter() - t0
-    n_cached = len(os.listdir(cache_dir.name))
-    # kept on the host, so that the copy does not count in the peak device memory
-    named = {**dict(trainer.geometry.named_parameters()),
-             **{f"background.{n}": p for n, p in trainer.background.named_parameters()},
-             **{f"renderer.{n}": p for n, p in trainer.volume_renderer.named_parameters()}}
-    before = {n: p.detach().cpu() for n, p in named.items()}
-
-    # launches a part: R's no-grad forward takes the plain forward kernel once per site;
-    # G takes it once per MV and SD teacher site for each renderer's images, and the
-    # stats forward and both backward kernels once per MV and SD encoder call; B-G takes
-    # the stats forward and both backward kernels once per site; the field grid runs once
-    # per prompt in R and once per prompt in B-R
-    encoder_calls = 2 * 2
-    expected = {"flash_attn_fwd": FLASH_PER_PASS + 2 * (MV_FLASH_PER_PASS + SD_FLASH_PER_PASS),
-                "flash_attn_fwd_stats": FLASH_PER_PASS + encoder_calls,
-                "flash_attn_bwd_dq": FLASH_PER_PASS + encoder_calls,
-                "flash_attn_bwd_dkdv": FLASH_PER_PASS + encoder_calls,
-                "field_grid": 2 * TRAIN_PROMPTS}
-
-    def reset_counts():
-        fa.LAUNCHES = fa.LAUNCHES_STATS = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKDV = 0
-        fg.LAUNCHES = 0
-
-    def read_counts():
-        return {"flash_attn_fwd": fa.LAUNCHES, "flash_attn_fwd_stats": fa.LAUNCHES_STATS,
-                "flash_attn_bwd_dq": fa.LAUNCHES_BWD_DQ, "flash_attn_bwd_dkdv": fa.LAUNCHES_BWD_DKDV,
-                "field_grid": fg.LAUNCHES}
-
-    totals = dict.fromkeys(expected, 0)
-    part_ms, step_ms, overflow_seen, g_space_max, regu_2nd = [], [], [], [], []
-    fids, grad_norms, grad_image_max = [], [], []
-    for step in range(TRAIN_STEPS):
-        data.update_step(trainer.global_step)
-        batch_list = data.sample_train_batch()
-        text = embeds_for(batch_list[0]["prompt"])
-        timesteps = sample_timesteps(trainer.all_timesteps, cfg.num_parts_training, trainer.rng)
-        scalars = trainer.host_scalars()
-        acc = None
-        torch.cuda.synchronize()
-        t_step = time.perf_counter()
-        latent = torch.from_numpy(batch_list[0]["noise"]).to("cuda")
-        for host_batch, t in zip(batch_list, timesteps):
-            reset_counts()
-            t_part = time.perf_counter()
-            batch = data.to_device(host_batch, "cuda")
-            latent, grads, info = _training_part(trainer, batch, latent, int(t), text, scalars, gen)
-            torch.cuda.synchronize()
-            part_ms.append((time.perf_counter() - t_part) * 1e3)
-            counts = read_counts()
-            check(counts == expected, f"training step {step} t={t}: launches {counts}, "
-                  f"expected {expected}")
-            for k_, v_ in counts.items():
-                totals[k_] += v_
-            for n, g in grads.items():
-                check(bool(torch.isfinite(g).all()), f"training: non-finite gradient {n}")
-            for side in ("1st", "2nd"):
-                check(bool(info[f"g_space_{side}_finite"])
-                      and float(info[f"g_space_{side}_abs_max"]) > 0,
-                      f"training step {step} t={t}: g_space_{side} not finite or zero")
-            check(bool(torch.isfinite(info["regu_2nd"])), f"training step {step} t={t}: "
-                  f"regu of the 2nd branch {float(info['regu_2nd'])}")
-            check(bool(torch.isfinite(info["fid"])) and bool(torch.isfinite(info["grad_norm_mv"])),
-                  f"training step {step} t={t}: fid {float(info['fid'])}, grad_norm_mv "
-                  f"{float(info['grad_norm_mv'])}")
-            for k_, gi in info["grad_images"].items():
-                check(tuple(gi.shape) == tuple(info["images"][k_].shape)
-                      and bool(torch.isfinite(gi).all()) and bool(gi.any()),
-                      f"training step {step} t={t}: the image gradient {k_} is not finite "
-                      "or is zero")
-            fids.append(float(info["fid"]))
-            grad_norms.append(float(info["grad_norm_mv"]))
-            grad_image_max.append({k_: float(gi.abs().max())
-                                   for k_, gi in info["grad_images"].items()})
-            for k_, img in info["images"].items():
-                c = 1 if k_.startswith("disparity") else 3
-                hw = 512 if k_.endswith("_1st") else data.cfg.ray_height
-                check(tuple(img.shape) == (TRAIN_PROMPTS * 4, hw, hw, c), f"{k_} shape")
-                check(bool(torch.isfinite(img).all()), f"training: non-finite {k_}")
-            overflow_seen.append({k_: v_.tolist() for k_, v_ in info["overflow"].items()})
-            g_space_max.append([float(info["g_space_1st_abs_max"]),
-                                float(info["g_space_2nd_abs_max"])])
-            regu_2nd.append(float(info["regu_2nd"]))
-            acc = trainer.accumulate(acc, grads)
-            del grads
-        check(trainer._stage_update(acc), f"training step {step}: the update was skipped")
-        trainer.global_step += 1
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t_step) * 1e3)
-    peak_bytes = torch.cuda.max_memory_allocated()
+    # every step through train_step, with every kernel's launches
+    check(len(steps) == TRAIN_STEPS and trainer.global_step == TRAIN_STEPS,
+          f"training: {len(steps)} steps, global_step {trainer.global_step}")
+    for i, st in enumerate(steps):
+        check(st["launches"] == expected, f"training step {i}: launches {st['launches']}, "
+              f"expected {expected}")
+    totals = {k: sum(st["launches"][k] for st in steps) for k in expected}
+    # the metrics log: a line a step with finite scalars
+    trial = Path(glob_one(tmp.name, "*", "*", "metrics.jsonl")).parent
+    with open(trial / "metrics.jsonl") as fh:
+        logged = [json.loads(ln) for ln in fh]
+    series = ["loss", "fidelity", "regularization", "grad_norm", "skipped_nonfinite"] + [
+        f"{k}_{i}" for k in ("fidelity", "regularization", "grad_norm") for i in range(n)]
+    check([ln["step"] for ln in logged] == list(range(TRAIN_STEPS))
+          and all(math.isfinite(ln[k]) for ln in logged for k in series),
+          f"training: metrics.jsonl {logged}")
+    # the checkpoint at step 2 loads back bit-equal to the partition it was saved from
+    state = torch.load(trial / f"ckpt_{TRAIN_CKPT_STEP:06d}" / "train_state.pt",
+                       map_location="cpu", weights_only=True)
+    saved = seen.pop("ckpt_params")
+    check(state["global_step"] == TRAIN_CKPT_STEP and set(state["params_train"]) == set(saved)
+          and all(torch.equal(state["params_train"][k], v) for k, v in saved.items()),
+          "training: the step-2 checkpoint differs from the partition it was saved from")
+    check((trial / f"ckpt_{TRAIN_CKPT_STEP:06d}" / "geometry.pt").stat().st_size > 0
+          and (trial / "last" / "geometry.pt").exists()
+          and (trial / "configs" / "parsed.yaml").exists(), "training: trial files missing")
+    del state, saved
 
     check(trainer.optimizer.total_notfinite == 0, "training: a gradient batch was not finite")
-    changed = {n for n, p in named.items() if not torch.equal(p.detach().cpu(), before[n])}
+    before = seen.pop("before")
+    changed = {n_ for n_, p in _named_params(trainer) if not torch.equal(p.detach().cpu(),
+                                                                       before[n_])}
+    del before
     check(changed <= set(trainer.trainable), "training: a frozen leaf changed: "
           f"{sorted(changed - set(trainer.trainable))[:5]}")
-    ups = [n for n in trainer.trainable if n.endswith(".up") or n.endswith(".up.weight")]
-    check(len(ups) > 100 and all(n in changed for n in ups),
-          f"training: adapter up leaves unchanged: {[n for n in ups if n not in changed][:5]}")
-    bg = [n for n in trainer.trainable if n.startswith("background.")]
-    check(len(bg) == 6 and all(n in changed for n in bg),
-          f"training: background leaves unchanged: {[n for n in bg if n not in changed]}")
-    fields = [n for n in trainer.trainable if n.startswith("field.")]
-    check(all(n in changed for n in fields),
-          f"training: field leaves unchanged: {[n for n in fields if n not in changed]}")
+    ups = [n_ for n_ in trainer.trainable if n_.endswith(".up") or n_.endswith(".up.weight")]
+    check(len(ups) > 100 and all(n_ in changed for n_ in ups),
+          f"training: adapter up leaves unchanged: {[n_ for n_ in ups if n_ not in changed][:5]}")
+    bg = [n_ for n_ in trainer.trainable if n_.startswith("background.")]
+    check(len(bg) == 6 and all(n_ in changed for n_ in bg),
+          f"training: background leaves unchanged: {[n_ for n_ in bg if n_ not in changed]}")
+    fields = [n_ for n_ in trainer.trainable if n_.startswith("field.")]
+    check(all(n_ in changed for n_ in fields),
+          f"training: field leaves unchanged: {[n_ for n_ in fields if n_ not in changed]}")
     # trainable_variance: false detaches the variance in the render: a zero gradient, no move
     check("renderer.variance_inv_std" in trainer.trainable
           and "renderer.variance_inv_std" not in changed,
           "training: the untrained variance_inv_std changed")
-    for n, p in trainer.params_train.items():
-        check(bool(torch.isfinite(p).all()), f"training: non-finite parameter {n}")
-    del before
+    for n_, p in trainer.params_train.items():
+        check(bool(torch.isfinite(p).all()), f"training: non-finite parameter {n_}")
 
-    # one more part under the profiler: device-busy ms by stage, and the heaviest device ops
-    scalars = trainer.host_scalars()
-    batch_list = data.sample_train_batch()
-    batch = data.to_device(batch_list[0], "cuda")
-    text = embeds_for(batch_list[0]["prompt"])
+    # one part through the trainer's staged loop (and the update) under the profiler:
+    # device-busy ms by program, and the heaviest device ops
+    text = seen["text"]
+    gen = seen["generator"]
+    batch_list = seen["batch_list"]
+    batch = MultiviewMultipromptDataModule.to_device(
+        {k: v for k, v in batch_list[0].items() if k != "noise"}, "cuda")
     latent = torch.from_numpy(batch_list[0]["noise"]).to("cuda")
+    scalars = trainer.host_scalars()
+    draws = trainer.draw_part(batch, latent.shape, gen)
     with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, info = _training_part(trainer, batch, latent, 999, text, scalars, gen)
+        trainer._train_step_staged([batch], [999], latent, text, scalars, [draws])
         torch.cuda.synchronize()
     busy_ms, stage_busy_ms, spanned, top = _profile_split(prof, TRAIN_STAGES, top=12)
     check(busy_ms > 0, "the profiler recorded no device time in the training part")
@@ -1701,47 +1866,100 @@ def phase_training():
                                            ("flash_attn_bwd_dq", "flash_bwd_dq_kernel"),
                                            ("flash_attn_bwd_dkdv", "flash_bwd_dkdv_kernel"),
                                            ("field_grid", "field_grid_kernel"))}
-    timed_parts = part_ms[cfg.num_parts_training:]
+    del prof
+    step_ms = [st["ms"] for st in steps]
     timed_steps = step_ms[1:]
-    median_part = sorted(timed_parts)[len(timed_parts) // 2]
-    images = {k: {"min": float(v.min()), "max": float(v.max()), "mean": float(v.float().mean())}
-              for k, v in info["images"].items()}
-    emit({"phase": "training", "config": "v1 recipe: SD-2.1 student UNet + retrofit VAE "
-          "(output_dim 64) + field MLPs + hash-grid background (c_dim 1024, 8 x 2 levels, "
-          "T = 2^19), 2 prompts x 4 views from the port's data module (seed 0), latents "
-          "2x6x32x32x4, R=160, 512² renders, bf16 frozen backbone, f32 trainables, random "
-          "weights seed 0, no gradient checkpointing; program G: SD-2.1 base, MVDream 4-view "
-          "(camera) and RichDreamer 768-d (camera, 8 heads) UNets and the MV and SD VAE "
-          "encoders in bf16 on random weights (seed 1), the renderers one after the other; "
-          "the dual prompt processor (OpenCLIP-H and SD-1.5 towers, f32, seed 0)",
-          "teacher_params": teacher_params, "prompt_library": len(data.library["train"]),
-          "prompt_cache_entries": n_cached, "prompt_setup_s": prompts_s,
-          "volume": {"rays": data.cfg.ray_height, "patch": trainer.patch_cfg.patch_size,
-                     "global_downsample": trainer.patch_cfg.global_downsample,
-                     "samples": [trainer.volume_renderer.cfg.num_samples_per_ray_importance,
-                                 trainer.volume_renderer.cfg.num_samples_per_ray],
-                     "field_chunk": trainer.volume_renderer.cfg.field_chunk},
-          "fid": fids, "grad_norm_mv": grad_norms, "grad_images_abs_max": grad_image_max,
+    median_step = sorted(timed_steps)[len(timed_steps) // 2]
+
+    # the inputs of the guidance, rasterize and volume lines: one part's programs R and G
+    _, space_cache, images, _ = trainer._stage_render(batch, latent, 999, text, scalars,
+                                                      draws.noise, draws.volume)
+    _, grad_images = trainer._stage_teacher(images, batch, text, scalars, draws.guidance)
+    image_stats = {k: {"min": float(v.min()), "max": float(v.max()),
+                       "mean": float(v.float().mean())} for k, v in images.items()}
+
+    # what --validate costs a prompt: one validation prompt's turntable at full width
+    data = MultiviewMultipromptDataModule(parse_structured(
+        DataModuleConfig, load_config(str(REPO / TRAIN_CONFIG)).get("data", {})), seed=0)
+    prompt = data.library["val"][0]
+    vbatch = data.eval_views(prompt, split="val")
+    vtext = seen["embeds_for"]([prompt])
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    torch.cuda.synchronize()
+    t_val = time.perf_counter()
+    start.record()
+    views = trainer.render_eval_views(vbatch, vtext)
+    mid.record()
+    paths = trainer.save_eval_artifacts(views, tmp.name, "it3-val-0")
+    end.record()
+    torch.cuda.synchronize()
+    val_host_ms = (time.perf_counter() - t_val) * 1e3
+    n_views = vbatch["mvp_mtx"].shape[0]
+    check(views["rgb"].shape == (n_views, data.cfg.eval_height, data.cfg.eval_width, 3)
+          and all(np.isfinite(v).all() for v in views.values()),
+          f"validation: views {({k: v.shape for k, v in views.items()})}")
+    check(len(paths) == 2 and all(os.path.getsize(p) > 0 for p in paths),
+          f"validation: artifacts {paths}")
+    validation = {"prompt": prompt, "views": n_views, "hw": list(views["rgb"].shape[1:3]),
+                  "render_eval_views_ms": start.elapsed_time(mid),
+                  "save_eval_artifacts_ms": mid.elapsed_time(end), "host_ms": val_host_ms,
+                  "turntable_file": os.path.basename(paths[1]),
+                  "turntable_bytes": os.path.getsize(paths[1]),
+                  "rgb_mean": float(views["rgb"].mean()),
+                  "opacity_mean": float(views["opacity"].mean())}
+    del views
+
+    emit({"phase": "training", "config": f"{TRAIN_CONFIG} through python3 -m "
+          "triplaneturbo_torch.launch --train (launch.main), overrides "
+          f"{TRAIN_OVERRIDES}: SD-2.1 student UNet + retrofit VAE (output_dim 64, bf16 frozen "
+          "backbone, f32 trainables, gradient checkpointing) + field MLPs + hash-grid "
+          "background (c_dim 1024), 2 prompts x 4 views from the port's data module (seed 0), "
+          "R=160, 512² renders, 128² volume rays; teachers SD-2.1 base, MVDream 4-view and "
+          "RichDreamer 768-d in bf16 on random weights (seed 1), the renderers one after the "
+          "other; the dual prompt processor (OpenCLIP-H and SD-1.5 towers, f32)",
+          "teacher_params": teacher_params,
           "trainable_leaves": len(trainer.trainable),
           "trainable_params": sum(p.numel() for p in trainer.params_train.values()),
-          "build_s": build_s, "steps": TRAIN_STEPS, "parts_per_step": cfg.num_parts_training,
-          "warmup_step_ms": step_ms[0], "step_ms": timed_steps, "part_ms": timed_parts,
-          "part_ms_median": median_part,
+          "launcher_s": launcher_s, "steps": TRAIN_STEPS, "parts_per_step": n,
+          "warmup_step_ms": step_ms[0], "step_ms": timed_steps, "step_ms_all": step_ms,
+          "step_ms_median": median_step, "loss": [st["loss"] for st in steps],
+          "metrics_logged": logged,
           "part_device_busy_ms": busy_ms,
-          "part_device_idle_share": max(0.0, 1.0 - busy_ms / median_part),
+          "part_host_ms_from_step_median": median_step / n,
+          "part_device_idle_share": max(0.0, 1.0 - busy_ms * n / median_step),
           "stage_device_busy_ms": stage_busy_ms, "stage_device_busy_share": stage_share,
-          "kernel_device_busy_ms": kernel_busy_ms,
-          "top_kernels": top, "launches_per_part": expected, "launches": totals,
-          "overflow_per_view": overflow_seen, "g_space_abs_max_1st_2nd": g_space_max,
-          "regu_2nd": regu_2nd,
-          "images_last_part": images, "total_notfinite": trainer.optimizer.total_notfinite,
-          "changed_leaves": len(changed), "max_memory_allocated_bytes": peak_bytes})
+          "kernel_device_busy_ms": kernel_busy_ms, "top_kernels": top,
+          "launches_per_part": LAUNCHES_PER_PART, "launches_per_step": expected,
+          "launches": totals, "images_one_part": image_stats,
+          "total_notfinite": trainer.optimizer.total_notfinite, "changed_leaves": len(changed),
+          "max_memory_allocated_bytes": peak_bytes, "validation": validation})
     check(stage_share >= 0.95, f"the stage ranges hold only {stage_share:.3f} of the device time")
-    phase_guidance(trainer, batch, info["images"], text, scalars, gen)
-    phase_rasterize(trainer, batch, info["space_cache"])
-    phase_volume(trainer, batch, info["space_cache"], text, scalars, gen, info["grad_images"])
-    cache_dir.cleanup()
+    phase_guidance(trainer, batch, images, text, scalars, gen)
+    phase_rasterize(trainer, batch, space_cache)
+    phase_volume(trainer, batch, space_cache, text, scalars, gen, grad_images)
+    del trainer, seen, images, grad_images, space_cache
+    tmp.cleanup()
+    torch.cuda.empty_cache()
     return totals
+
+
+def _named_params(trainer):
+    """Every parameter the trainer trains or could: the geometry's, the background's and
+    the volume renderer's, under the trainable partition's names."""
+    yield from trainer.geometry.named_parameters()
+    for prefix, module in (("background", trainer.background),
+                           ("renderer", trainer.volume_renderer)):
+        for n, p in module.named_parameters():
+            yield f"{prefix}.{n}", p
+
+
+def glob_one(*parts) -> str:
+    """The one path that matches the glob of ``parts``."""
+    import glob
+
+    found = glob.glob(os.path.join(*parts))
+    check(len(found) == 1, f"expected one match of {os.path.join(*parts)}: {found}")
+    return found[0]
 
 
 def phase_volume(trainer, batch, space_cache, text, scalars, gen, grad_images):
@@ -1833,6 +2051,151 @@ def phase_volume(trainer, batch, space_cache, text, scalars, gen, grad_images):
     return row
 
 
+# The launcher phase: configs/smoke_tiny.yaml widened to the small kernel-taking model of
+# the reference phases (head dim 64, 64-channel planes; teachers of 64 and 128 channels,
+# VAE encoders to 64), 2 parts of 2 prompts x 4 views at 64², 32² rays, a library of two
+# prompts a split.
+SMALL_LIBRARY = {"train": ["a red chair", "a blue teapot"],
+                 "val": ["a green frog", "a white boat"],
+                 "test": ["a ceramic lion", "a wooden crate"]}
+
+
+def _small_launcher_overrides():
+    sg = {k: list(v) if isinstance(v, tuple) else v for k, v in SMALL_SG.items()}
+    teachers = {kind: {k: list(v) if isinstance(v, tuple) else v for k, v in d.items()}
+                for kind, d in SMALL_TEACHERS.items()}
+    out = {"data.batch_size": 8, "data.n_view": 4, "data.height": 64, "data.width": 64,
+           "data.ray_height": 32, "data.ray_width": 32,
+           "data.dim_gaussian": [6, 4, SMALL_KW["latent_resolution"], SMALL_KW["latent_resolution"]],
+           "system.background.c_dim": SMALL_SG["cross_attention_dim"],
+           "system.renderer": SMALL_RENDER, "system.renderer_2nd": SMALL_VOLUME,
+           "system.patch": SMALL_PATCH, "system.guidance": SMALL_GUIDANCE,
+           "system.teacher_sizes": teachers, "system.num_parts_training": 2,
+           "system.num_steps_training": 2, "data.n_steps": 2, "trainer.checkpoint_every": 2,
+           "trainer.val_check_interval": 0}
+    out.update({f"system.geometry.space_generator_config.{k}": v for k, v in sg.items()})
+    return [f"{k}={json.dumps(v)}" for k, v in out.items()]
+
+
+def phase_launcher():
+    """``python3 -m triplaneturbo_torch.launch`` (through ``main``) on the card at the small
+    kernel-taking width: --train for 2 steps, --resume from its checkpoint for one more
+    (the restored state held bit-equal to the saved one), --validate (4 views) with the
+    trained geometry through ``system.weights``, --export from the step-2 checkpoint
+    through --resume."""
+    import torch
+    from triplaneturbo_torch import launch
+    from triplaneturbo_torch.utils import checkpoint
+
+    reset_counts, read_counts = _count_launches()
+    tmp = tempfile.TemporaryDirectory()
+    lib = Path(tmp.name) / "lib"
+    lib.mkdir()
+    (lib / "small.json").write_text(json.dumps(SMALL_LIBRARY))
+    trial = Path(tmp.name) / "trial"
+    base = ["--config", str(REPO / "configs" / "smoke_tiny.yaml"), *_small_launcher_overrides(),
+            f"trial_dir={trial}", f"exp_root_dir={tmp.name}", f"data.prompt_library_dir={lib}",
+            "data.prompt_library=small"]
+
+    def state(tr):
+        opt = tr.optimizer
+        return ({n: p.detach().cpu().clone() for n, p in tr.params_train.items()},
+                {i: {k: v.detach().cpu().clone() for k, v in opt.adan.state[p].items()}
+                 for i, p in enumerate(opt.params) if p in opt.adan.state},
+                (opt.adan.count, opt.mini_step, opt.notfinite_count, opt.total_notfinite,
+                 tr.global_step))
+
+    def same(a, b):
+        return (a[2] == b[2] and set(a[0]) == set(b[0]) and set(a[1]) == set(b[1])
+                and all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+                and all(set(a[1][i]) == set(b[1][i])
+                        and all(torch.equal(a[1][i][k], b[1][i][k]) for k in a[1][i])
+                        for i in a[1]))
+
+    row = {"phase": "launcher", "what": "python3 -m triplaneturbo_torch.launch on the card, "
+           "configs/smoke_tiny.yaml at the small kernel-taking width (head dim 64, 64-channel "
+           "planes, teachers of 64 and 128 channels), 2 parts of 2 prompts x 4 views at 64²"}
+    t0 = time.perf_counter()
+    reset_counts()
+    trained = launch.main([*base, "--train", "--max-steps", "2"])
+    torch.cuda.synchronize()
+    row["train_s"], row["train_launches"] = time.perf_counter() - t0, read_counts()
+    check(all(v > 0 for v in row["train_launches"].values()),
+          f"launcher: a kernel was not launched in --train: {row['train_launches']}")
+    check(trained.cfg.auto_grad is False and trained.global_step == 2,
+          "launcher: the small config should train monolithically for 2 steps")
+    with open(trial / "metrics.jsonl") as fh:
+        logged = [json.loads(ln) for ln in fh]
+    check(len(logged) == 2 and all(math.isfinite(ln["loss"]) for ln in logged),
+          f"launcher: metrics {logged}")
+    saved = state(trained)
+    del trained
+    restored = {}
+    load = checkpoint.load_train_state
+
+    def loading(path, tr, **kwargs):
+        step = load(path, tr, **kwargs)
+        restored["state"] = state(tr)
+        return step
+
+    checkpoint.load_train_state = loading
+    try:
+        t0 = time.perf_counter()
+        resumed = launch.main([*base, "--train", "--max-steps", "3", "--resume",
+                               str(trial / "ckpt_000002")])
+        torch.cuda.synchronize()
+        row["resume_s"] = time.perf_counter() - t0
+    finally:
+        checkpoint.load_train_state = load
+    check(same(restored["state"], saved), "launcher: --resume did not restore the train state "
+          "bit-equal")
+    check(resumed.global_step == 3 and resumed.optimizer.adan.count == 3,
+          f"launcher: after --resume global_step {resumed.global_step}")
+    trained_geometry = {n: p.detach().cpu().clone()
+                        for n, p in resumed.geometry.state_dict().items()}
+    del resumed
+    t0 = time.perf_counter()
+    validated = launch.main([*base, "--validate", "data.n_val_views=4",
+                             f"system.weights={trial / 'last' / 'geometry.pt'}"])
+    torch.cuda.synchronize()
+    row["validate_s"] = time.perf_counter() - t0
+    check(all(torch.equal(trained_geometry[n], p.cpu())
+              for n, p in validated.geometry.state_dict().items()),
+          "launcher: --validate did not load the trained geometry from system.weights")
+    del validated, trained_geometry
+    saved_files = sorted(os.listdir(trial / "save"))
+    for i in range(len(SMALL_LIBRARY["val"])):
+        check(f"it0-val-{i}-grid.png" in saved_files
+              and any(f.startswith(f"it0-val-{i}-rgb.") for f in saved_files),
+              f"launcher: --validate wrote {saved_files}")
+    check(all((trial / "save" / f).stat().st_size > 0 for f in saved_files),
+          "launcher: an empty validation file")
+    row["validate_files"] = saved_files
+    reset_counts()
+    t0 = time.perf_counter()
+    exported = launch.main([*base, "--export", "--resume", str(trial / "ckpt_000002")])
+    torch.cuda.synchronize()
+    row["export_s"], row["export_launches"] = time.perf_counter() - t0, read_counts()
+    check(same(state(exported), saved),
+          "launcher: --export did not restore the step-2 train state through --resume")
+    del exported
+    objs = sorted((trial / "it2-export").glob("*/model.obj"))
+    faces = []
+    for path in objs:
+        with open(path) as fh:
+            lines = fh.read().splitlines()
+        faces.append(sum(ln.startswith("f ") for ln in lines))
+        check(sum(ln.startswith("v ") for ln in lines) > 0 and faces[-1] > 0,
+              f"launcher: --export wrote an empty {path}")
+    check(len(objs) == len(SMALL_LIBRARY["test"]), f"launcher: --export wrote {objs}")
+    check(row["export_launches"]["field_grid"] == len(objs),
+          f"launcher: --export launches {row['export_launches']}")
+    row["export_faces"] = faces
+    emit(row)
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+
 def kernels_line(rows, serving, training):
     """One entry per kernel, with the numbers of its heaviest main-path shape (bf16, the
     joint self-attention; R = 160 for the field grid). ``launches`` is the count from
@@ -1886,6 +2249,7 @@ def main() -> int:
     phase_reference()
     phase_train_reference()
     serving = phase_pipeline()
+    phase_launcher()
     training = phase_training()
     for name, count in {**training, **{k: serving[k] for k in ("flash_attn_fwd", "field_grid")}}.items():
         check(count > 0, f"{name} was launched no time on its main path")

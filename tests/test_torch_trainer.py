@@ -15,6 +15,7 @@ space-cache cotangents, and the same noise: the JAX side draws it from
 for the port.
 """
 
+import os
 from types import SimpleNamespace
 
 import jax
@@ -89,6 +90,7 @@ PLANE = RES * 2 ** (len(TINY_SG["vae_block_out_channels"]) - 1)  # the tiny VAE 
 # another order by XLA and by PyTorch's CPU kernels, so each leaf is held to 1e-4 of
 # its own largest value
 REL_TOL = 1e-4
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def nonzero_adapters(tree, rng):
@@ -460,8 +462,28 @@ def test_trainer_builds_on_cuda_by_default_and_leaves_the_rest_unported():
                                trainer.volume_renderer.cfg.learned_variance_init, rtol=1e-7)
     assert all(p.device.type == "cpu" and bool(torch.isfinite(p).all())
                for p in trainer.params_train.values())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(d\)$"):
-        trainer.train_step([], {}, None)
+    # the whole step runs on the CPU: the tiny config's system, one monolithic step
+    from triplaneturbo_torch.data.multiview_multiprompt import (
+        DataModuleConfig,
+        MultiviewMultipromptDataModule,
+    )
+    from triplaneturbo_torch.systems.builder import build_system
+    from triplaneturbo_torch.utils.config import load_config, parse_structured
+
+    cfg = load_config(os.path.join(REPO, "configs", "smoke_tiny.yaml"))
+    system = build_system(cfg, device="cpu")
+    dm = MultiviewMultipromptDataModule(parse_structured(DataModuleConfig, cfg.data))
+    gen = torch.Generator().manual_seed(0)
+    text = {k: torch.randn(s, generator=gen) * (0 if k.startswith("uncond") else 1)
+            for k, s in (("cond_local", (1, 77, 32)), ("cond_21", (1, 77, 32)),
+                         ("uncond_21", (1, 77, 32)), ("cond_15", (1, 77, 32)),
+                         ("uncond_15", (1, 77, 32)), ("global_21", (1, 32)))}
+    metrics = system.train_step(dm.sample_train_batch(), text, gen)
+    assert system.global_step == 1 and np.isfinite(float(metrics["loss"]))
+    assert system.optimizer.adan.count == 1 and metrics["skipped_nonfinite"] == 0
+    # what stays unported: loading weights (ROADMAP A20)
+    with pytest.raises(NotImplementedError, match="ROADMAP A20"):
+        build_system({"system": {"weights": "model.pth"}}, device="cpu")
     # built without teacher_sizes, the trainer has no teachers: program G refuses
     assert trainer.guidance is None
     with pytest.raises(RuntimeError, match="without teachers"):

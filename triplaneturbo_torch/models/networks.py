@@ -15,6 +15,25 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class _TruncExp(torch.autograd.Function):
+    """exp(x) whose backward takes exp of x clipped to [-15, 15]: the gradient
+    stays finite where the value overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15, 15))
+
+
+def trunc_exp(x: torch.Tensor) -> torch.Tensor:
+    return _TruncExp.apply(x)
+
+
 def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
     """Activation registry, including the MipNeRF-clamped sigmoid for colors."""
     if name is None:
@@ -28,6 +47,10 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
         return torch.exp
     if key == "shifted_exp":
         return lambda x: torch.exp(x - 1.0)
+    if key == "trunc_exp":
+        return trunc_exp
+    if key == "shifted_trunc_exp":
+        return lambda x: trunc_exp(x - 1.0)
     if key == "sigmoid":
         return torch.sigmoid
     if key == "tanh":

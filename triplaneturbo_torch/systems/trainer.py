@@ -1,35 +1,39 @@
-"""Training system: the student's half of the staged distillation step.
+"""Training system: the multi-step progressive rendering distillation step.
 
-Counterpart of ``triplaneturbo_tpu/systems/trainer.py``. The JAX trainer's
-staged step (``auto_grad``) runs, for each of the ``num_parts_training`` denoise
-parts, a render program (R), a teacher program (G), one render-backward
-program per branch (B-R "1st" mesh, "2nd" volume) and ONE generator backward
-(B-G, ``_stage_student_space``) that takes the two branches' space-cache
-cotangents and returns the adapter gradients; ``_stage_update`` then applies
-guarded Adan to the accumulated gradients.
+Counterpart of ``triplaneturbo_tpu/systems/trainer.py``. One optimization step
+(:meth:`TriplaneTurboTrainer.train_step`) samples one timestep from each of the
+``num_parts_training`` strata and, for each denoise part, adds noise to the
+latent, denoises it with the student UNet, decodes the space cache, renders it
+with both renderers (mesh rasterize, patch-wrapped NeuS volume), scores the six
+images with the three frozen teachers (ASD guidance) and adds the regularizers;
+the next part starts from the detached denoised latent, and guarded Adan applies
+the parts' mean gradient.
 
-Ported here: program R with both branches, program G (the three frozen teachers'
-ASD guidance over the six rendered images, with the two renderers' images scored
-one after the other or, with ``parallel_guidance``, stacked), program B-R for the
-first (mesh rasterize) and the second (patch-wrapped NeuS volume) branch, with the
-hash-grid background, the material and the two renderers the trainer owns; B-G
-and the update, with what they stand on (``_denoise_decode``, the timestep
-strata, the host-side schedules, the step metrics). ``train_step`` itself raises
-``NotImplementedError`` until it is ported (ROADMAP A9 (d)).
+With ``auto_grad`` (the v1 recipe) the step is staged as in the JAX package: a
+part runs a render program (R: no-grad generator forward and both renders), a
+teacher program (G: the teachers' image gradients), one render-backward program
+per branch (B-R "1st" mesh, "2nd" volume) and ONE generator backward (B-G,
+``_stage_student_space``) that takes the two branches' space-cache cotangents;
+the gradients accumulate in place and ``_stage_update`` applies them. Without it
+the step is one autograd graph over the parts (``_train_step_monolithic``), each
+part under ``torch.utils.checkpoint``. Validation renders a DDIM sample's
+turntable with the mesh renderer (``render_eval_views``).
 
 PyTorch runs eagerly, so a "program" is a method; gradients travel as
 dictionaries keyed by parameter name, the counterpart of the JAX trainable
 partition: the geometry's trainable names as they are, the background's
 under ``background.``, the volume renderer's under ``renderer.``. Random
-draws are explicit arguments: the render and the backward programs of a part
-must see the same noise and the same volume draws (patch origin, sampler
-jitter; :meth:`TriplaneTurboTrainer.draw_volume`), where the JAX package
-derives both programs' keys from one; program G takes the teachers' draws
-(:meth:`TriplaneTurboTrainer.draw_guidance`).
+draws are explicit arguments (:class:`PartDraws`): the render and the backward
+programs of a part must see the same noise and the same volume draws (patch
+origin, sampler jitter; :meth:`TriplaneTurboTrainer.draw_volume`), where the JAX
+package derives both programs' keys from one; program G takes the teachers'
+draws (:meth:`TriplaneTurboTrainer.draw_guidance`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -48,7 +52,8 @@ from ..models.geometry.triplane_geometry import (
     TriplaneGeometryConfig,
     mark_trainable,
 )
-from ..models.materials.no_material import NoMaterial
+from ..data.multiview_multiprompt import MultiviewMultipromptDataModule
+from ..models.materials.no_material import NoMaterial, NoMaterialConfig
 from ..models.renderers.patch_renderer import PatchDraws, PatchRenderer, PatchRendererConfig
 from ..models.renderers.rasterize_renderer import (
     GenerativeSpaceMeshRasterizeRenderer,
@@ -63,6 +68,7 @@ from ..models.schedulers import (
     SchedulerConfig,
     add_noise,
     alpha_at,
+    ddim_step,
     ddim_timesteps,
     make_schedule,
     pred_original,
@@ -74,6 +80,14 @@ from .builder import build_teacher
 from .optimizers import GuardedAdan
 
 Grads = Dict[str, torch.Tensor]
+
+
+def _detached(t: torch.Tensor) -> torch.Tensor:
+    return t.detach()
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
 
 
 def sample_timesteps(all_timesteps: np.ndarray, num_parts: int,
@@ -115,6 +129,9 @@ class TrainerConfig:
     # program G: the two renderers' images through one teacher pass each (True), or
     # the renderers one after the other (False, the v1 default: half the activations)
     parallel_guidance: bool = False
+    # the v1 recipe's staged step (programs R, G, B-R, B-G a part); False runs the
+    # parts as one autograd graph, each part checkpointed
+    auto_grad: bool = False
     learning_rate: float = 2e-4
     adan_betas: Tuple[float, float, float] = (0.98, 0.92, 0.99)
     adan_eps: float = 1e-15
@@ -139,6 +156,16 @@ class TrainerConfig:
     def_grad_shrink: Any = 0.001
 
 
+@dataclass
+class PartDraws:
+    """One denoise part's random draws: the noise added to the latent, the volume
+    branch's (patch origin, sampler jitter) and program G's."""
+
+    noise: torch.Tensor
+    volume: PatchDraws
+    guidance: Dict[str, List[GuidanceDraws]]
+
+
 class TriplaneTurboTrainer:
     """Owns the geometry, the background, the material, the rasterize and the
     volume renderer with the patch config, the guidance with its frozen teachers,
@@ -152,7 +179,8 @@ class TriplaneTurboTrainer:
                  rasterize_renderer: Optional[GenerativeSpaceMeshRasterizeRenderer] = None,
                  volume_renderer: Optional[GenerativeSpaceSDFVolumeRenderer] = None,
                  patch_cfg: Optional[PatchRendererConfig] = None,
-                 guidance: Optional[ASDGuidance] = None):
+                 guidance: Optional[ASDGuidance] = None,
+                 material_fn: Optional[NoMaterial] = None):
         self.cfg = cfg
         self.geometry = geometry
         self.schedule = schedule
@@ -163,7 +191,7 @@ class TriplaneTurboTrainer:
         self.rasterize_renderer = rasterize_renderer or GenerativeSpaceMeshRasterizeRenderer()
         self.volume_renderer = volume_renderer or GenerativeSpaceSDFVolumeRenderer().to(device)
         self.patch_cfg = patch_cfg or PatchRendererConfig()
-        self.material_fn = NoMaterial()
+        self.material_fn = material_fn or NoMaterial()
         self.guidance = guidance
         self.global_step = 0
         self.rng = np.random.RandomState(0)
@@ -199,7 +227,9 @@ class TriplaneTurboTrainer:
               patch_cfg: Optional[PatchRendererConfig] = None,
               teacher_sizes: Optional[Dict[str, Dict[str, Any]]] = None,
               teacher_dtype: str = "bfloat16",
-              guidance_cfg: Optional[ASDConfig] = None) -> "TriplaneTurboTrainer":
+              guidance_cfg: Optional[ASDConfig] = None,
+              geometry_overrides: Optional[Dict[str, Any]] = None,
+              color_activation: str = "sigmoid-mipnerf") -> "TriplaneTurboTrainer":
         """A trainer on ``device`` with random weights from ``seed``.
 
         The geometry and the background are built on the meta device and
@@ -210,13 +240,18 @@ class TriplaneTurboTrainer:
         three frozen teachers in ``teacher_dtype`` from ``seed + 1``, and the
         guidance over them; without it the trainer has no teachers and program G
         raises (programs R, B-R, B-G and the update need none).
+        ``geometry_overrides`` sets fields of the geometry's config besides the
+        space generator's; ``color_activation`` is the material's.
+        :func:`~triplaneturbo_torch.systems.builder.build_system` calls this with
+        what a config file holds.
         """
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
         cfg = cfg or TrainerConfig()
         geometry_cfg = TriplaneGeometryConfig(
-            space_generator=SpaceGeneratorConfig(**(space_generator_overrides or {})))
+            space_generator=SpaceGeneratorConfig(**(space_generator_overrides or {})),
+            **(geometry_overrides or {}))
         with torch.device("meta"):
             geometry = TriplaneGeometry(geometry_cfg)
             background = HashgridEnvironmentMapBackground(background_cfg)
@@ -237,7 +272,7 @@ class TriplaneTurboTrainer:
             guidance = ASDGuidance(guidance_cfg, schedule=schedule, **teachers)
         return cls(cfg, geometry, schedule, background,
                    GenerativeSpaceMeshRasterizeRenderer(renderer_cfg), volume_renderer, patch_cfg,
-                   guidance)
+                   guidance, NoMaterial(NoMaterialConfig(color_activation=color_activation)))
 
     # ------------------------------------------------------------------
 
@@ -270,7 +305,7 @@ class TriplaneTurboTrainer:
             "regularization": regus.mean(),
             "grad_norm": gns.mean(),
         }
-        for i in range(cfg.num_parts_training):
+        for i in range(len(fids)):
             metrics[f"fidelity_{i}"] = fids[i]
             metrics[f"regularization_{i}"] = regus[i]
             metrics[f"grad_norm_{i}"] = gns[i]
@@ -399,9 +434,16 @@ class TriplaneTurboTrainer:
                 return {"sdf": ungroup(geo.forward_sdf(pts, space_cache))}
             if mode:
                 # one field evaluation and its input gradient (the analytic
-                # normal), whose graph is kept when the caller differentiates on
+                # normal), whose graph is kept when the caller differentiates on.
+                # Where it is not, the inner graph saves detached copies of its own:
+                # inside a checkpointed part (the monolithic step) the checkpoint's
+                # hooks would drop its tensors, and the inner gradient would recompute
+                # the part up to here (a saved tensor with its history would keep the
+                # nodes the inner gradient does not run alive, through their outputs)
                 outer = torch.is_grad_enabled()
-                with torch.enable_grad():
+                own = (contextlib.nullcontext() if outer else
+                       torch.autograd.graph.saved_tensors_hooks(_detached, _same))
+                with torch.enable_grad(), own:
                     p = pts.detach().requires_grad_()
                     out = geo(p, space_cache)
                     (grad,) = torch.autograd.grad(out["sdf"].sum(), p, create_graph=outer)
@@ -594,6 +636,184 @@ class TriplaneTurboTrainer:
                        for (k, v), g in zip(imgs.items(), grads)}
         return (fid.detach(), gn.detach()), grad_images
 
+    # -- the step ------------------------------------------------------------
+
+    def draw_part(self, batch: Dict[str, Any], latent_shape: Sequence[int],
+                  generator: torch.Generator) -> PartDraws:
+        """One part's draws on ``generator`` (and its device): the noise, then the
+        volume branch's draws, then program G's."""
+        noise = torch.randn(tuple(latent_shape), generator=generator, device=generator.device)
+        return PartDraws(noise, self.draw_volume(batch, generator),
+                         self.draw_guidance(batch, generator))
+
     def train_step(self, batch_list: Sequence[Dict[str, Any]], text_embeds: Dict[str, Any],
-                   generator: torch.Generator):
-        raise NotImplementedError("train_step needs the host loop and the launcher: ROADMAP A9 (d)")
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[Sequence[PartDraws]] = None) -> Dict[str, Any]:
+        """One optimization step over the data module's ``num_parts_training``
+        step-batches (host arrays; the first carries the latent ``noise``) and the
+        prompts' text states (``embeds_for``): the timesteps from the strata on
+        ``self.rng``, the schedules at ``global_step``, the staged step under
+        ``auto_grad`` and the monolithic one otherwise, then ``global_step + 1``.
+
+        Every part's draws are made on ``generator`` before the first part; an
+        explicit ``draws`` (one :class:`PartDraws` a part) replaces them. Returns
+        the metrics (``loss``, ``fidelity``, ``regularization``, ``grad_norm``, the
+        per-part series and, with ``skip_nonfinite_grads``, ``skipped_nonfinite``:
+        the batches the finiteness gate has skipped so far)."""
+        cfg = self.cfg
+        n = cfg.num_parts_training
+        if len(batch_list) != n:
+            raise ValueError(f"{len(batch_list)} step-batches for {n} parts")
+        ts = sample_timesteps(self.all_timesteps, n, self.rng)
+        scalars = self.host_scalars()
+        device = self.schedule.betas.device
+        batches = [MultiviewMultipromptDataModule.to_device(
+            {k: v for k, v in b.items() if k != "noise" and not isinstance(v, (list, str))},
+            device) for b in batch_list]
+        latent = torch.as_tensor(batch_list[0]["noise"], dtype=torch.float32).to(device)
+        if draws is None:
+            if generator is None:
+                raise ValueError("train_step needs a generator or explicit draws")
+            draws = [self.draw_part(b, latent.shape, generator) for b in batches]
+        if len(draws) != n:
+            raise ValueError(f"{len(draws)} draws for {n} parts")
+        text_embeds = {k: v.to(device) for k, v in text_embeds.items()}
+        step = self._train_step_staged if cfg.auto_grad else self._train_step_monolithic
+        metrics = step(batches, [int(t) for t in ts], latent, text_embeds, scalars, draws)
+        if cfg.skip_nonfinite_grads:
+            metrics["skipped_nonfinite"] = self.optimizer.total_notfinite
+        self.global_step += 1
+        return metrics
+
+    def _train_step_staged(self, batches, timesteps, latent, text_embeds, scalars, draws):
+        """Per part programs R, G, B-R "1st", B-R "2nd" and B-G; the parts'
+        gradients accumulate in place, and one update follows. Each part's images,
+        caches, cotangents and gradients are dropped as soon as they are used, so
+        that the peak is one part's."""
+        acc: Optional[Grads] = None
+        fids, regus, gns = [], [], []
+        for batch, t, d in zip(batches, timesteps, draws):
+            latent_in = latent
+            latent, space_cache, images, _ = self._stage_render(
+                batch, latent_in, t, text_embeds, scalars, d.noise, d.volume)
+            (fid, gn), grad_images = self._stage_teacher(images, batch, text_embeds, scalars,
+                                                         d.guidance)
+            del images
+            grads, g_space_1st, regu = self._stage_student_render(
+                batch, space_cache, text_embeds, scalars, grad_images, branch="1st")
+            grads_2nd, g_space_2nd, regu_2nd = self._stage_student_render(
+                batch, space_cache, text_embeds, scalars, grad_images, branch="2nd",
+                draws=d.volume)
+            del space_cache, grad_images
+            grads_g = self._stage_student_space(latent_in, t, text_embeds, g_space_1st,
+                                                g_space_2nd, d.noise)
+            del g_space_1st, g_space_2nd
+            for name, g in grads.items():
+                g.add_(grads_2nd[name]).add_(grads_g[name])
+            del grads_2nd, grads_g
+            acc = grads if acc is None else self.accumulate(acc, grads)
+            del grads
+            fids.append(fid)
+            regus.append(regu + regu_2nd)
+            gns.append(gn)
+        self._stage_update(acc)
+        return self._step_metrics(torch.stack(fids), torch.stack(regus), torch.stack(gns))
+
+    def _part_loss(self, latent, t, batch, text_embeds, scalars, d: PartDraws):
+        """One part of the monolithic step with grad: noise, denoise, decode, both
+        renders, the teachers and the regularizers. Returns (denoised, fid, regu,
+        grad_norm_mv)."""
+        denoised, space_cache = self._denoise_decode(latent, t, text_embeds, d.noise)
+        out_1st, out_2nd = self._render_branch(batch, space_cache, scalars,
+                                               text_embeds["global_21"], "both", d.volume)
+        fid, gn = self._guidance_losses(out_1st, out_2nd, batch, text_embeds, scalars, d.guidance)
+        regu = self._regularizers_1st(out_1st, scalars) + self._regularizers_2nd(out_2nd, scalars)
+        return denoised, fid, regu, gn.detach()
+
+    def _train_step_monolithic(self, batches, timesteps, latent, text_embeds, scalars, draws):
+        """One autograd graph over the parts, each under ``torch.utils.checkpoint``
+        (the JAX package's ``jax.checkpoint`` of the scan body: a part keeps only its
+        inputs and runs again in the backward), its draws made outside it; one
+        backward of (Σ fid + Σ regu) / num_parts and the update."""
+        from torch.utils.checkpoint import checkpoint
+
+        if self.guidance is None:
+            raise RuntimeError("the trainer was built without teachers (teacher_sizes)")
+        fids, regus, gns = [], [], []
+        with torch.enable_grad():
+            for batch, t, d in zip(batches, timesteps, draws):
+                denoised, fid, regu, gn = checkpoint(self._part_loss, latent, t, batch,
+                                                     text_embeds, scalars, d,
+                                                     use_reentrant=False)
+                latent = denoised.detach()
+                fids.append(fid)
+                regus.append(regu)
+                gns.append(gn)
+            fids, regus = torch.stack(fids), torch.stack(regus)
+            total = (fids.sum() + regus.sum()) / self.cfg.num_parts_training
+            params = list(self.params_train.values())
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+        self.optimizer.step([torch.zeros_like(p) if g is None else g
+                             for p, g in zip(params, grads)])
+        return self._step_metrics(fids.detach(), regus.detach(), torch.stack(gns))
+
+    # -- validation: turntable renders of a DDIM sample --------------------------
+
+    @torch.no_grad()
+    def diffusion_reverse(self, noise: torch.Tensor, text_local: torch.Tensor) -> torch.Tensor:
+        """The shifted ``num_steps_training``-step DDIM sample from ``noise``; returns
+        the last step's x̂₀."""
+        latents = denoised = noise
+        n = len(self.all_timesteps)
+        for t in self.all_timesteps:
+            eps = self.geometry.denoise(latents, text_local, int(t))
+            out = ddim_step(self.schedule, eps, int(t), latents, n)
+            latents, denoised = out.prev_sample, out.pred_original_sample
+        return denoised
+
+    @torch.no_grad()
+    def render_eval_views(self, batch: Dict[str, Any], text_embeds: Dict[str, torch.Tensor],
+                          chunk_views: int = 4) -> Dict[str, np.ndarray]:
+        """A turntable batch (``eval_views``, host arrays) of the prompt whose text
+        states ``text_embeds`` holds, rendered by the mesh renderer ``chunk_views``
+        views at a time from the DDIM sample of ``batch["noise"]``. Returns host
+        arrays ``rgb``, ``normal``, ``opacity`` and ``depth``, [views, H, W, C]."""
+        device = self.schedule.betas.device
+        te = {k: v.to(device) for k, v in text_embeds.items()}
+        latents = self.diffusion_reverse(torch.as_tensor(batch["noise"]).to(device),
+                                         te["cond_local"])
+        space_cache = self.geometry.decode(latents)
+        geo = self.geometry
+        dev = MultiviewMultipromptDataModule.to_device(
+            {k: batch[k] for k in ("mvp_mtx", "camera_positions", "rays_d_rasterize",
+                                   "camera_distances", "c2w")}, device)
+        H, W = batch["rays_d_rasterize"].shape[1:3]
+        n = batch["mvp_mtx"].shape[0]
+        frames = []
+        for i in range(0, n, chunk_views):
+            sl = slice(i, min(i + chunk_views, n))
+            out = self.rasterize_renderer(
+                dev["mvp_mtx"][sl], dev["camera_positions"][sl], space_cache,
+                geo.forward_field, lambda p, sc: geo.export(p, sc)["features"], self.material_fn,
+                lambda dirs, t_: self.background(dirs, t_, train=False), H, W,
+                text_embed=te["global_21"], rays_d_rasterize=dev["rays_d_rasterize"][sl],
+                camera_distances=dev["camera_distances"][sl], c2w=dev["c2w"][sl],
+                forward_field_grid=geo.forward_field_grid)
+            frames.append({k: out[src].float().cpu().numpy() for k, src in (
+                ("rgb", "comp_rgb"), ("normal", "comp_normal"), ("opacity", "opacity"),
+                ("depth", "depth"))})
+        return {k: np.concatenate([f[k] for f in frames]) for k in frames[0]}
+
+    def save_eval_artifacts(self, views: Dict[str, np.ndarray], save_dir: str, tag: str
+                            ) -> List[str]:
+        """The middle view's rgb | normal | opacity | depth grid (PNG) and the rgb
+        turntable (:func:`~triplaneturbo_torch.utils.saving.save_video`)."""
+        from ..utils.saving import save_image_grid, save_video
+
+        mid = views["rgb"].shape[0] // 2
+        d = views["depth"][mid, ..., 0]
+        d = (d - d.min()) / max(float(d.max() - d.min()), 1e-6)
+        grid = save_image_grid(os.path.join(save_dir, f"{tag}-grid.png"),
+                               [views["rgb"][mid], views["normal"][mid],
+                                views["opacity"][mid].repeat(3, -1), np.stack([d] * 3, -1)])
+        return [grid, save_video(os.path.join(save_dir, f"{tag}-rgb.mp4"), list(views["rgb"]))]
