@@ -88,13 +88,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
                after, an exported OBJ, then one more ``__call__`` prompt under
                ``torch.profiler``: device-busy ms of each stage (the pipeline's
                ``record_function`` ranges), the idle share and the heaviest kernels.
-7. launcher -- ``python3 -m triplaneturbo_torch.launch`` through ``launch.main`` on the
+7. checkpoint -- the reference's checkpoints in, at full width in bf16:
+               ``tools/reference_layout.py`` writes the seed-0 pipeline as an SD-2.1-base
+               diffusers directory (``unet``, ``vae``, ``text_encoder``) and
+               ``triplane_turbo_sd_v1.pth``, and a full MVDream teacher as an LDM ``.pt``
+               whose ``model_ema`` shadows hold the weights, each tensor in its
+               module's dtype; ``tools/convert_checkpoints.py --strict`` converts them
+               (the student in f32), ``from_pretrained(dir, dtype_str="bfloat16")`` and ``build_teacher("mv", ckpt_path=...)`` load
+               them: no unmatched key, every parameter loaded, state dicts bit-equal to
+               their sources, one prompt with fixed latents equal to the source
+               pipeline's (latents, space cache, mesh); seconds of writing, converting,
+               loading and the first prompt.
+8. export   -- the loaded pipeline's full-width mesh in every format: ``export_obj``
+               (the native C++ writer), ``export_obj(save_normal=True)`` (the Python
+               writer) and the mesh exporter's ``obj-mtl`` (a 1024² texture baked from
+               the texture field on the card): counts equal to the masks' sums, the
+               baked colors finite and in [0, 1], host seconds of each; the same for
+               a torus at the pipeline's whole capacity (98,304 vertices, 196,608
+               faces); the card's bake against the CPU route's: the UV atlas equal,
+               bit-equal textures with a pointwise ramp (the same winning faces and
+               texels), within 1e-3 with the field closure.
+9. launcher -- ``python3 -m triplaneturbo_torch.launch`` through ``launch.main`` on the
                card, ``configs/smoke_tiny.yaml`` widened to the small kernel-taking model:
                ``--train`` for 2 steps (every kernel launched), ``--resume`` from its
                step-2 checkpoint for one more (the restored trainable partition, Adan
                state and step bit-equal to the saved ones), ``--validate`` (4 views: the
                grid PNG and the turntable) and ``--export`` (a non-empty OBJ a prompt).
-8. training -- the v1 recipe at full width through the port's launcher: ``launch.main``
+10. training -- the v1 recipe at full width through the port's launcher: ``launch.main``
                with ``configs/triplaneturbo_v1.yaml`` as written (gradient checkpointing
                on) but for the log, checkpoint and validation intervals and
                ``field_chunk``, for three steps of ``train_step``: two prompts x four
@@ -908,7 +928,295 @@ def phase_pipeline():
           "meshes": counts, "obj": obj, "max_memory_allocated_bytes": peak_bytes})
     # every kernel of the prompt, the hand-written ones too, falls in a stage's range
     check(stage_share >= 0.95, f"the stage ranges hold only {stage_share:.3f} of the device time")
-    return launches
+    return launches, pipe
+
+
+CKPT_PROMPT = "a delicious hamburger"
+TEX_SIZE = 1024  # the exporter's texture (the JAX package's default)
+
+
+def _mesh_diffs(a, b) -> dict:
+    """Largest absolute difference of each output of two pipeline calls."""
+    ma, mb = a["mesh"][0], b["mesh"][0]
+    pairs = {"latents": (a["latents"], b["latents"]), "space_cache": (a["space_cache"],
+                                                                     b["space_cache"]),
+             "v_pos": (ma.v_pos, mb.v_pos), "v_rgb": (ma.v_rgb, mb.v_rgb),
+             "t_pos_idx": (ma.t_pos_idx, mb.t_pos_idx), "v_mask": (ma.v_mask, mb.v_mask),
+             "t_mask": (ma.t_mask, mb.t_mask)}
+    return {k: float((x.double() - y.double()).abs().max()) for k, (x, y) in pairs.items()}
+
+
+def phase_checkpoint(src):
+    """The reference's checkpoints in, at full width in bf16: ``reference_layout`` writes
+    the seed-0 pipeline ``src`` as an SD-2.1-base diffusers directory (``unet``, ``vae``,
+    ``text_encoder``) and ``triplane_turbo_sd_v1.pth``, and a full MVDream teacher as an
+    LDM ``.pt`` whose ``model_ema`` shadows hold the weights (each tensor in its module's
+    dtype); ``tools/convert_checkpoints.py`` converts them (``--strict``; the student in
+    f32, which holds bf16 exactly); ``from_pretrained(dir, dtype_str="bfloat16")`` and
+    ``build_teacher("mv", ckpt_path=...)`` load them: zero unmatched keys, every
+    parameter loaded, state dicts bit-equal to the sources, and one prompt with fixed
+    latents equal to the source pipeline's. Returns the loaded pipeline and its output."""
+    import torch
+    from triplaneturbo_torch.pipelines.triplaneturbo_text_to_3d import (
+        TriplaneTurboTextTo3DPipeline,
+    )
+    from triplaneturbo_torch.systems.builder import build_teacher
+    from triplaneturbo_torch.tools import convert_checkpoints
+    from triplaneturbo_torch.tools import reference_layout as ref
+
+    source_mv = build_teacher("mv", torch.Generator(device="cuda").manual_seed(1), {},
+                              "bfloat16", "cuda")
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    seconds, sizes = {}, {}
+    t = time.perf_counter()
+    sg = src.geometry.space_generator
+    sd = ref.write_diffusers_dir(str(d / "ref" / "sd21"), sg.unet, sg.vae, src.text_encoder)
+    pth = ref.write_adapter(str(d / "ref" / "triplane_turbo_sd_v1.pth"), src.geometry)
+    mvp = str(d / "ref" / "sd-v2.1-base-4view.pt")
+    torch.save(ref.ldm_teacher_state(source_mv.unet, source_mv.vae), mvp)
+    seconds["write"] = time.perf_counter() - t
+    for f in sorted((d / "ref").rglob("*")):
+        if f.is_file():
+            sizes[str(f.relative_to(d / "ref"))] = f.stat().st_size
+
+    out = d / "converted"
+    t = time.perf_counter()
+    stats = convert_checkpoints.main(["--adapter", pth, "--sd-base", sd, "--mvdream", mvp,
+                                      "--out", str(out), "--device", "cuda", "--strict"])
+    torch.cuda.synchronize()
+    seconds["convert"] = time.perf_counter() - t
+    for part in (stats["student"], stats["text_encoder"], stats["mv_teacher"]["unet"],
+                 stats["mv_teacher"]["vae"]):
+        check(part["not_loaded"] == 0 and part["mismatched"] == 0 and part["loaded"] == part["params"],
+              f"conversion left parameters or keys unmatched: {stats}")
+    for f in (d / "ref").rglob("*"):  # the converted files are what a user keeps
+        if f.is_file():
+            f.unlink()
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pipe = TriplaneTurboTextTo3DPipeline.from_pretrained(str(out), device="cuda", seed=123,
+                                                         dtype_str="bfloat16")
+    torch.cuda.synchronize()
+    seconds["from_pretrained"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mv = build_teacher("mv", torch.Generator(device="cuda").manual_seed(2), {}, "bfloat16",
+                       "cuda", ckpt_path=str(out / "mv_teacher.pt"))
+    torch.cuda.synchronize()
+    seconds["teacher_load"] = time.perf_counter() - t
+    unequal = []
+    for name, mine, theirs in (("geometry", pipe.geometry, src.geometry),
+                               ("text_encoder", pipe.text_encoder, src.text_encoder),
+                               ("mv_unet", mv.unet, source_mv.unet),
+                               ("mv_vae", mv.vae, source_mv.vae)):
+        a, b = mine.state_dict(), theirs.state_dict()
+        check(set(a) == set(b), f"{name}: state dict keys differ")
+        unequal += [f"{name}.{k}" for k in b if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+    check(not unequal, f"loaded state differs from its source: {unequal[:5]} ({len(unequal)})")
+    n_params = {"pipeline": sum(p.numel() for m in (pipe.geometry, pipe.text_encoder)
+                                for p in m.parameters()),
+                "mv_teacher": sum(p.numel() for m in (mv.unet, mv.vae) for p in m.parameters())}
+    del mv, source_mv
+
+    lat = torch.randn((1, 6, 32, 32, 4), generator=torch.Generator(device="cuda").manual_seed(7),
+                      device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loaded_out = pipe(CKPT_PROMPT, latents=lat)
+    torch.cuda.synchronize()
+    seconds["first_prompt"] = time.perf_counter() - t
+    source_out = src(CKPT_PROMPT, latents=lat)
+    diffs = _mesh_diffs(loaded_out, source_out)
+    check(all(v == 0.0 for v in diffs.values()), f"the loaded pipeline differs: {diffs}")
+    files = {f.name: f.stat().st_size for f in sorted(out.iterdir())}
+    tmp.cleanup()
+    emit({"phase": "checkpoint", "config": "SD-2.1-base diffusers directory + "
+          "triplane_turbo_sd_v1.pth + MVDream LDM .pt with model_ema shadows, written by "
+          "reference_layout from the seed-0 pipeline and a seed-1 MVDream teacher, bf16 "
+          "backbone, f32 adapters and text tower", "reference_bytes": sizes,
+          "converted_bytes": files, "params": n_params, "conversion": stats,
+          "seconds": seconds, "prompt_max_abs_diff": diffs})
+    return pipe, loaded_out
+
+
+def _png_pixels(path):
+    """(height, width, pixels) of an 8-bit RGB PNG that ``utils.saving.write_png`` wrote
+    (one IDAT, filter 0 on every row)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = Path(path).read_bytes()
+    w, h = struct.unpack(">II", data[16:24])
+    pos, idat = 8, b""
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), "PNG rows with a filter")
+    return h, w, rows[:, 1:].reshape(h, w, 3)
+
+
+def _obj_counts(path) -> dict:
+    counts = {"v": 0, "vn": 0, "vt": 0, "f": 0}
+    with open(path) as fh:
+        for line in fh:
+            tag = line.split(" ", 1)[0]
+            if tag in counts:
+                counts[tag] += 1
+    counts["bytes"] = os.path.getsize(path)
+    return counts
+
+
+def _torus(nu: int = 384, nv: int = 256):
+    """A closed torus on the card with ``nu * nv`` vertices and twice as many faces
+    (98,304 and 196,608: the pipeline's whole capacity), inside the field's cube."""
+    import torch
+
+    a = torch.arange(nu, device="cuda", dtype=torch.float32)[:, None] * (2 * math.pi / nu)
+    b = torch.arange(nv, device="cuda", dtype=torch.float32)[None, :] * (2 * math.pi / nv)
+    ring = 0.5 + 0.2 * torch.cos(b)
+    v = torch.stack([ring * torch.cos(a), ring * torch.sin(a), (0.2 * torch.sin(b)).expand(nu, nv)],
+                    -1).reshape(-1, 3)
+    i, j = torch.meshgrid(torch.arange(nu, device="cuda"), torch.arange(nv, device="cuda"),
+                          indexing="ij")
+    c00, c10 = i * nv + j, (i + 1) % nu * nv + j
+    c01, c11 = i * nv + (j + 1) % nv, (i + 1) % nu * nv + (j + 1) % nv
+    f = torch.cat([torch.stack([c00, c10, c11], -1).reshape(-1, 3),
+                   torch.stack([c00, c11, c01], -1).reshape(-1, 3)])
+    return v, f.int()
+
+
+def _ramp(p):
+    """A pointwise color of float64 points, exact in IEEE arithmetic on either device and
+    never 0, so that a texel's coverage shows in its color."""
+    import torch
+
+    k = torch.tensor([3.1, 5.3, 7.7], dtype=p.dtype, device=p.device)
+    return 0.25 + 0.5 * torch.frac(p * k).abs()
+
+
+def _bake_routes(v, faces, color_fn) -> dict:
+    """The texture of ``v``, ``faces`` (compacted, on the card) baked on the card and on
+    the CPU with the same closure (evaluated on the card for both): the UV atlases must
+    be equal; the largest texel difference and the texels whose coverage differs."""
+    import torch
+    from triplaneturbo_torch.utils.uv_export import bake_texture, per_face_uv_atlas
+
+    uv_card, _ = per_face_uv_atlas(faces.shape[0], TEX_SIZE, device=v.device)
+    uv_cpu, _ = per_face_uv_atlas(faces.shape[0], TEX_SIZE)
+    check(torch.equal(uv_card.cpu(), uv_cpu), "the UV atlas differs between card and CPU")
+    card = bake_texture(v, faces, uv_card, color_fn, TEX_SIZE).cpu()
+    cpu = bake_texture(v.cpu(), faces.cpu(), uv_cpu, lambda p: color_fn(p.cuda()).cpu(),
+                       TEX_SIZE)
+    covered = (card > 0).any(-1)
+    return {"max_abs_err": float((card - cpu).abs().max()), "covered": int(covered.sum()),
+            "coverage_differs": int((covered != (cpu > 0).any(-1)).sum())}
+
+
+def _write_formats(mesh, color_fn, d: str, name: str) -> tuple:
+    """``export_obj`` (native writer), ``export_obj(save_normal=True)`` and the exporter's
+    ``obj-mtl`` of ``mesh`` under ``d``: (host seconds, counts of each file); the counts
+    must equal the masks' sums."""
+    import torch
+    from triplaneturbo_torch.models.exporters.mesh_exporter import (
+        MeshExporterConfig,
+        MultipromptMeshExporter,
+    )
+    from triplaneturbo_torch.pipelines.triplaneturbo_text_to_3d import export_obj
+
+    nv, nf = int(mesh.valid_vert_mask().sum()), int(mesh.valid_face_mask().sum())
+    seconds, files = {}, {}
+    for fmt, normal in (("obj", False), ("obj_normals", True)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = export_obj(mesh, os.path.join(d, f"{name}_{fmt}.obj"), save_normal=normal)[0]
+        seconds[fmt] = time.perf_counter() - t
+        files[fmt] = _obj_counts(path)
+        check(files[fmt]["v"] == nv and files[fmt]["f"] == nf
+              and files[fmt]["vn"] == (nv if normal else 0),
+              f"{name} {fmt}: {files[fmt]} for {nv} vertices and {nf} faces")
+    exporter = MultipromptMeshExporter(MeshExporterConfig(fmt="obj-mtl"))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    path = exporter([mesh], d, [name], color_fns=[color_fn])[0]
+    torch.cuda.synchronize()
+    seconds["obj_mtl"] = time.perf_counter() - t
+    files["obj_mtl"] = _obj_counts(path)
+    check(files["obj_mtl"]["v"] == nv and files["obj_mtl"]["f"] == nf
+          and files["obj_mtl"]["vt"] == 3 * nf, f"{name} obj-mtl: {files['obj_mtl']}")
+    h, w, px = _png_pixels(os.path.join(d, name, "texture_kd.png"))
+    check((h, w) == (TEX_SIZE, TEX_SIZE), f"{name} texture {h}x{w}")
+    files["texture_bytes"] = os.path.getsize(os.path.join(d, name, "texture_kd.png"))
+    files["texels_covered_share"] = float((px.max(axis=-1) > 0).mean())
+    return seconds, files
+
+
+def phase_export(pipe, out):
+    """Every export format from the loaded pipeline's full-width mesh and from a torus
+    at the pipeline's whole capacity (98,304 vertices, 196,608 faces): ``export_obj``
+    through the native writer, ``export_obj(save_normal=True)`` through the Python
+    writer, and the mesh exporter's ``obj-mtl`` at ``tex_size`` 1024 with the texture
+    field's closure on the card; the vertex and face counts equal to the masks' sums,
+    the baked colors finite and in [0, 1]; host seconds of each. The card's bake is
+    held against the CPU route's: the UV atlas equal, with a pointwise ramp the texture
+    bit-equal (every covered texel, so every winning face, and every texel index), and
+    with the field closure (evaluated on the card in both) within 1e-3."""
+    import torch
+    from triplaneturbo_torch.utils import native
+    from triplaneturbo_torch.utils.mesh import Mesh
+
+    m = out["mesh"][0]
+    cache = out["space_cache"][0]
+    nv, nf = int(m.v_mask.sum()), int(m.t_mask.sum())
+    faces_valid = int((m.t_mask & m.v_mask[m.t_pos_idx.long()].all(dim=1)).sum())
+    check(faces_valid == nf, f"{nf - faces_valid} valid faces name an invalid vertex")
+    baked = {"points": 0, "nonfinite": 0, "min": math.inf, "max": -math.inf}
+
+    @torch.no_grad()
+    def color_fn(p):
+        c = pipe.material(pipe.geometry.export(p[None].float(), cache[None])["features"][0])
+        baked["points"] += c.shape[0]
+        baked["nonfinite"] += int((~torch.isfinite(c)).sum())
+        baked["min"] = min(baked["min"], float(c.min()))
+        baked["max"] = max(baked["max"], float(c.max()))
+        return c
+
+    tv, tf = _torus()
+    torus = Mesh(v_pos=tv, t_pos_idx=tf, v_mask=torch.ones(tv.shape[0], dtype=torch.bool,
+                                                           device="cuda"),
+                 t_mask=torch.ones(tf.shape[0], dtype=torch.bool, device="cuda"),
+                 v_rgb=color_fn(tv.double()).float())
+    native.library()  # built before the timed writes
+    with tempfile.TemporaryDirectory() as d:
+        seconds, files = _write_formats(m, color_fn, d, "model")
+        full_seconds, full_files = _write_formats(torus, color_fn, d, "torus")
+    check(baked["points"] > 0 and baked["nonfinite"] == 0 and 0.0 <= baked["min"]
+          and baked["max"] <= 1.0, f"baked colors: {baked}")
+
+    vm = m.v_mask
+    remap = torch.full((vm.shape[0],), -1, dtype=torch.long, device="cuda")
+    remap[vm] = torch.arange(nv, device="cuda")
+    faces = remap[m.t_pos_idx.long()[m.t_mask]]
+    routes = {"mesh_ramp": _bake_routes(m.v_pos[vm], faces, _ramp),
+              "mesh_field": _bake_routes(m.v_pos[vm], faces, color_fn),
+              "torus_ramp": _bake_routes(tv, tf.long(), _ramp)}
+    emit({"phase": "export", "mesh": {"verts": nv, "faces": nf, "capacity": [
+          int(m.v_pos.shape[0]), int(m.t_pos_idx.shape[0])]}, "tex_size": TEX_SIZE,
+          "files": files, "baked_colors": baked, "host_seconds": seconds,
+          "full_capacity_torus": {"verts": int(tv.shape[0]), "faces": int(tf.shape[0]),
+                                  "files": full_files, "host_seconds": full_seconds},
+          "card_vs_cpu_bake": routes})
+    for name, r in routes.items():
+        if name.endswith("ramp"):
+            ok = r["max_abs_err"] == 0.0 and r["coverage_differs"] == 0 and r["covered"] > 0
+        else:
+            ok = r["max_abs_err"] <= 1e-3
+        check(ok, f"the card's bake differs from the CPU's ({name}): {r}")
 
 
 # The small model's first renderer: R = 16 keeps the chance that the field grid's
@@ -2248,7 +2556,15 @@ def main() -> int:
     rows = phase_kernels()
     phase_reference()
     phase_train_reference()
-    serving = phase_pipeline()
+    serving, pipe = phase_pipeline()
+    loaded, out = phase_checkpoint(pipe)
+    del pipe
+    phase_export(loaded, out)
+    del loaded, out
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_launcher()
     training = phase_training()
     for name, count in {**training, **{k: serving[k] for k in ("flash_attn_fwd", "field_grid")}}.items():

@@ -126,3 +126,48 @@ def test_resolvers_and_dotlist_errors():
         tconfig.apply_dotlist({"a": 1}, ["a.b=2"])
     with pytest.raises(tconfig.YAMLError):
         tconfig.yaml_load("a:\n  - 1\n  - 2\n")
+
+
+def test_port_drops_only_the_keys_it_does_not_carry_over(monkeypatch):
+    """ROADMAP C4: ``parse_structured`` drops unknown keys without a word. Over every
+    ``configs/*.yaml``, each section ``build_system`` and the launcher parse is held against
+    the JAX package's dataclass of the same module and name: beyond the keys the JAX
+    package drops, the port drops exactly ``n_view`` and ``rasterize_hw`` (which the JAX
+    trainer does not read either) and ``vae_attn_type`` (a JAX ``SpaceGeneratorConfig``
+    field nothing reads). A key the port lacks then fails this test, not silently."""
+    import importlib
+
+    from triplaneturbo_torch.data.multiview_multiprompt import DataModuleConfig
+    from triplaneturbo_torch.models.exporters.mesh_exporter import MeshExporterConfig
+    from triplaneturbo_torch.systems import builder
+    from triplaneturbo_torch.systems.trainer import TriplaneTurboTrainer
+
+    monkeypatch.chdir(REPO)
+    calls = []
+
+    def recording(cls, cfg=None, strict=False):
+        calls.append((cls, dict(cfg or {})))
+        return tconfig.parse_structured(cls, cfg, strict)
+
+    monkeypatch.setattr(builder, "parse_structured", recording)
+    monkeypatch.setattr(TriplaneTurboTrainer, "build", classmethod(lambda cls, *a, **k: None))
+    extra, parsed = {}, set()
+    for path in CONFIGS:
+        cfg = tconfig.load_config(os.path.relpath(path, REPO))
+        calls.clear()
+        builder.build_system(cfg, device="cpu")
+        # the launcher's own sections
+        calls += [(DataModuleConfig, dict(cfg.get("data", {}))),
+                  (MeshExporterConfig, dict(cfg.get("system", {}).get("exporter", {}) or {}))]
+        for cls, section in calls:
+            theirs = getattr(importlib.import_module(
+                cls.__module__.replace("triplaneturbo_torch", "triplaneturbo_tpu")), cls.__name__)
+            dropped = set(section) - {f.name for f in dataclasses.fields(cls)}
+            jax_dropped = set(section) - {f.name for f in dataclasses.fields(theirs)}
+            for key in dropped - jax_dropped:
+                extra.setdefault(key, set()).add(f"{os.path.basename(path)}: {cls.__name__}")
+            parsed.add(cls.__name__)
+    assert {"SpaceGeneratorConfig", "HashGridConfig", "VolumeRendererConfig",
+            "RasterizeRendererConfig", "PatchRendererConfig", "ASDConfig", "TrainerConfig",
+            "LossConfig", "DataModuleConfig", "MeshExporterConfig"} <= parsed
+    assert set(extra) == {"n_view", "rasterize_hw", "vae_attn_type"}, extra

@@ -369,7 +369,10 @@ def test_build_teacher_is_frozen_bf16_and_refuses_a_checkpoint():
         for n, p in m.named_parameters():
             assert p.dtype == torch.bfloat16 and not p.requires_grad, n
     assert mv.unet.cfg.camera_dim == 16 and rd.unet.cfg.cross_attention_dim == 32
-    with pytest.raises(NotImplementedError, match="A20"):
+    # the JAX package's own msgpack teachers (ROADMAP A20b) and a missing file
+    with pytest.raises(NotImplementedError, match="A20b"):
+        build_teacher("sd", gen, SIZES["sd"], "bfloat16", "cpu", ckpt_path="sd_teacher.msgpack")
+    with pytest.raises(FileNotFoundError):
         build_teacher("sd", gen, SIZES["sd"], "bfloat16", "cpu", ckpt_path="sd.ckpt")
     with pytest.raises(ValueError):
         build_teacher("xx", gen)

@@ -142,7 +142,7 @@ def test_resumed_run_takes_the_steps_of_an_uninterrupted_one(run, tmp_path):
 
 def test_validate_and_export_write_their_files(run):
     main, trial, trainer = run
-    # the trained geometry through system.weights; the reference's formats wait for A20
+    # the trained geometry through system.weights; the JAX package's msgpack waits for A20b
     validated = main("--validate", **{"system.weights": os.path.join(trial, "last",
                                                                      "geometry.pt")})
     trained = trainer.geometry.state_dict()
@@ -153,9 +153,10 @@ def test_validate_and_export_write_their_files(run):
         assert any(f.startswith(f"it0-val-{i}-rgb.") for f in saved), saved
     for f in saved:
         assert os.path.getsize(os.path.join(trial, "save", f)) > 0
-    for weights in ("model.pth", "geometry.msgpack"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A20"):
-            main("--validate", **{"system.weights": weights})
+    with pytest.raises(NotImplementedError, match="ROADMAP A20b"):
+        main("--validate", **{"system.weights": "geometry.msgpack"})
+    with pytest.raises(FileNotFoundError):  # before the system is built
+        main("--validate", **{"system.weights": "model.pth"})
     # the train state of step 2 through --resume
     exported = main("--export", "--resume", os.path.join(trial, "ckpt_000002"))
     assert exported.global_step == 2

@@ -10,8 +10,10 @@ logs every ``trainer.log_every_n_steps`` steps into ``metrics.jsonl``, writes
 ``trainer.checkpoint_every`` steps and renders the validation prompts every
 ``trainer.val_check_interval`` steps (0: never); ``--resume`` restores a train
 state (a checkpoint directory, ``LAST`` allowed) in every mode, and
-``system.weights=<geometry.pt>`` the geometry; ``--validate`` and ``--test`` render
-the turntables of the val or test prompts; ``--export`` writes an OBJ a test prompt.
+``system.weights=<geometry.pt or adapter .pth>`` the geometry; ``--validate`` and
+``--test`` render the turntables of the val or test prompts; ``--export`` writes a
+test prompt's mesh in ``system.exporter.fmt`` (``obj``, or ``obj-mtl`` with the
+texture baked from the field on the card).
 A step's noise and draws come from a generator seeded with the seed and the step
 (the JAX launcher's ``fold_in(key, step)``), and a checkpoint holds the host
 generators of the batches and timesteps, so a resumed run takes the steps an
@@ -148,16 +150,25 @@ def main(argv: Optional[List[str]] = None):
             MeshExporterConfig, cfg.get("system", {}).get("exporter", {})))
         export_dir = os.path.join(cfg.trial_dir, f"it{trainer.global_step}-export")
         geo = trainer.geometry
+
+        def color_closure(cache):
+            """Points [N, 3] -> colors: the texture field and the material, on ``device``
+            (``obj-mtl`` bakes its texture through it)."""
+            return lambda p: trainer.material_fn(
+                geo.export(p[None].to(device=device, dtype=torch.float32), cache)["features"][0])
+
         for i, prompt in enumerate(prompts):
             emb = embeds_for([prompt])
             noise = torch.as_tensor(dm.eval_views(prompt)["noise"]).to(device)
             with torch.no_grad():
                 space_cache = geo.decode(trainer.diffusion_reverse(noise, emb["cond_local"]))
-            meshes = exporter.extract(space_cache, geo.forward_field_grid,
-                                      lambda p, sc: geo.export(p, sc)["features"],
-                                      trainer.material_fn)
+                meshes = exporter.extract(space_cache, geo.forward_field_grid,
+                                          lambda p, sc: geo.export(p, sc)["features"],
+                                          trainer.material_fn)
             name = "".join(c if c.isalnum() else "_" for c in prompt)[:80]
-            exporter(meshes, export_dir, [name])
+            exporter(meshes, export_dir, [name],
+                     color_fns=[color_closure(space_cache[j:j + 1])
+                                for j in range(space_cache.shape[0])])
             _log(f"[{i + 1}/{len(prompts)}] exported {prompt}")
     return trainer
 

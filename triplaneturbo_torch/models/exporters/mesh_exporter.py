@@ -1,11 +1,16 @@
-"""Mesh exporter: space cache → vertex-colored OBJ.
+"""Mesh exporter: space cache → vertex-colored OBJ, or OBJ + MTL + baked texture.
 
-Counterpart of ``triplaneturbo_tpu/models/exporters/mesh_exporter.py`` for
-``fmt: "obj"``: the SDF and deformation on the R³ grid (the field-grid kernel on
-the card, through ``forward_field_grid``), the empty-field fallback, marching
-cubes into fixed-capacity buffers, the texture field's colours through the
-material, and ``utils.saving.save_obj``. ``fmt: "obj-mtl"`` (a UV atlas and a
-baked texture) waits for ROADMAP A18.
+Counterpart of ``triplaneturbo_tpu/models/exporters/mesh_exporter.py``: the SDF
+and deformation on the R³ grid (the field-grid kernel on the card, through
+``forward_field_grid``), the empty-field fallback, marching cubes into
+fixed-capacity buffers and the texture field's colours through the material;
+then ``fmt: "obj"`` writes ``utils.saving.save_obj`` and ``fmt: "obj-mtl"`` the
+compacted mesh through ``utils.uv_export.export_obj_mtl`` (a per-face UV atlas,
+the texture baked from each mesh's color closure on the mesh's device).
+
+Without a closure the JAX exporter bakes each texel from the nearest of only the
+first 500 valid vertices, and its launcher never passes one; that fallback is not
+carried over: ``obj-mtl`` without a closure raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -19,11 +24,12 @@ import torch
 from ...ops.isosurface import extract_isosurface, force_field_crossing
 from ...utils.mesh import Mesh
 from ...utils.saving import save_obj
+from ...utils.uv_export import export_obj_mtl
 
 
 @dataclass
 class MeshExporterConfig:
-    fmt: str = "obj"  # "obj" (vertex colors) | "obj-mtl" (UV albedo, ROADMAP A18)
+    fmt: str = "obj"  # "obj" (vertex colors) | "obj-mtl" (UV atlas, baked albedo)
     save_name: str = "model"
     save_video: bool = False
     isosurface_resolution: int = 160
@@ -36,10 +42,8 @@ class MeshExporterConfig:
 class MultipromptMeshExporter:
     def __init__(self, cfg: Optional[MeshExporterConfig] = None):
         self.cfg = cfg or MeshExporterConfig()
-        if self.cfg.fmt != "obj":
-            raise NotImplementedError(
-                f"exporter fmt {self.cfg.fmt!r}: the UV-atlas OBJ+MTL export waits for "
-                "ROADMAP A18")
+        if self.cfg.fmt not in ("obj", "obj-mtl"):
+            raise ValueError(f"exporter fmt {self.cfg.fmt!r}: 'obj' or 'obj-mtl'")
 
     @torch.no_grad()
     def extract(self, space_cache: torch.Tensor, forward_field_grid: Callable,
@@ -64,11 +68,35 @@ class MultipromptMeshExporter:
                                t_mask=m.face_mask, v_rgb=material_fn(feats)))
         return meshes
 
-    def __call__(self, meshes: List[Mesh], save_dir: str,
-                 names: Optional[List[str]] = None) -> List[str]:
-        """``<save_dir>/<name>/model.obj`` for each mesh; returns the paths."""
-        return [save_obj(os.path.join(save_dir, names[i] if names else f"{self.cfg.save_name}_{i}",
-                                      "model.obj"),
-                         mesh.v_pos, mesh.t_pos_idx, v_rgb=mesh.v_rgb, v_mask=mesh.v_mask,
-                         t_mask=mesh.t_mask)
-                for i, mesh in enumerate(meshes)]
+    @torch.no_grad()
+    def __call__(self, meshes: List[Mesh], save_dir: str, names: Optional[List[str]] = None,
+                 color_fns: Optional[List[Callable]] = None) -> List[str]:
+        """``<save_dir>/<name>/model.obj`` for each mesh (with ``model.mtl`` and
+        ``texture_kd.png`` for ``obj-mtl``, which needs ``color_fns``: one closure a
+        mesh, points [N, 3] -> colors [N, 3]); returns the OBJ paths."""
+        paths = []
+        for i, mesh in enumerate(meshes):
+            name = names[i] if names else f"{self.cfg.save_name}_{i}"
+            if self.cfg.fmt == "obj-mtl":
+                paths.append(self._export_obj_mtl(mesh, save_dir, name,
+                                                  color_fns[i] if color_fns else None))
+            else:
+                paths.append(save_obj(os.path.join(save_dir, name, "model.obj"), mesh.v_pos,
+                                      mesh.t_pos_idx, v_rgb=mesh.v_rgb, v_mask=mesh.v_mask,
+                                      t_mask=mesh.t_mask))
+        return paths
+
+    def _export_obj_mtl(self, mesh: Mesh, save_dir: str, name: str,
+                        color_fn: Optional[Callable]) -> str:
+        """The valid vertices and faces, reindexed, through ``export_obj_mtl``."""
+        if color_fn is None:
+            raise ValueError("fmt 'obj-mtl' bakes the texture from each mesh's color "
+                             "closure: pass color_fns")
+        vm, fm = mesh.valid_vert_mask(), mesh.valid_face_mask()
+        remap = torch.full((mesh.v_pos.shape[0],), -1, dtype=torch.long, device=vm.device)
+        remap[vm] = torch.arange(int(vm.sum()), device=vm.device)
+        faces = remap[mesh.t_pos_idx.long()[fm]]
+        faces = faces[(faces >= 0).all(dim=1)]
+        obj_path, _, _ = export_obj_mtl(os.path.join(save_dir, name), "model", mesh.v_pos[vm],
+                                        faces, color_fn)
+        return obj_path

@@ -7,13 +7,16 @@ deformation on the dense grid -> marching cubes -> vertex colors. PyTorch
 runs eagerly, so the JAX ``scan`` is a Python loop and each batch item is
 extracted in turn. Only the OBJ write touches the host.
 
-Weights are random, made from ``seed``; loading released checkpoints is not
-ported yet. The entry point runs on the GPU unless the caller passes
-``device="cpu"``.
+``from_pretrained(path)`` reads ``path/config.json`` and loads the weights of a
+directory that ``tools/convert_checkpoints.py`` wrote (``geometry.pt``,
+``text_encoder.pt``), or of the reference's adapter ``.pth`` over random
+backbone weights; without a path the weights are random, made from ``seed``.
+The entry point runs on the GPU unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -56,6 +59,20 @@ class TriplaneTurboPipelineConfig:
     max_faces: int = 196608
     dtype_str: str = "float32"
 
+    @classmethod
+    def from_pretrained(cls, path: Optional[str], **kw) -> "TriplaneTurboPipelineConfig":
+        """The fields of ``path/config.json`` (when there is one), then ``kw``. Keys of
+        the file that are not fields are left out, as in the JAX pipeline (whose files
+        may carry more); an unknown key in ``kw`` raises ``TypeError``."""
+        cfg_dict: Dict[str, Any] = {}
+        if path is not None:
+            cfg_path = os.path.join(path, "config.json")
+            if os.path.exists(cfg_path):
+                with open(cfg_path) as f:
+                    names = set(cls.__dataclass_fields__)
+                    cfg_dict = {k: v for k, v in json.load(f).items() if k in names}
+        return cls(**{**cfg_dict, **kw})
+
 
 class TriplaneTurboTextTo3DPipeline:
     """Prompt in -> vertex-colored mesh out."""
@@ -77,17 +94,21 @@ class TriplaneTurboTextTo3DPipeline:
                         text_config: Optional[CLIPTextConfig] = None,
                         device: Union[str, torch.device] = "cuda",
                         **kwargs) -> "TriplaneTurboTextTo3DPipeline":
-        """Build the pipeline on ``device`` with random weights from ``seed``.
+        """Build the pipeline on ``device`` with random weights from ``seed``, then load
+        ``pretrained_model_name_or_path`` when given: a directory (its ``config.json``
+        sets the config under ``kwargs``; its ``geometry.pt`` and ``text_encoder.pt``
+        the weights) or the reference's adapter ``.pth`` (``utils/checkpoint.py``
+        ``maybe_load_pipeline_params``).
 
         The modules are built on the meta device and materialised directly on
         ``device``, so the full-size model never passes through host memory.
         """
-        if pretrained_model_name_or_path:
-            raise NotImplementedError("loading pretrained weights is not ported yet")
+        path = pretrained_model_name_or_path
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-        cfg = TriplaneTurboPipelineConfig(**kwargs)
+        cfg = TriplaneTurboPipelineConfig.from_pretrained(
+            path if path and os.path.isdir(path) else None, **kwargs)
         sg_cfg = SpaceGeneratorConfig(dtype_str=cfg.dtype_str, **(space_generator_overrides or {}))
         # the text tower stays float32, as in the JAX pipeline
         text_cfg = text_config or CLIPTextConfig(width=sg_cfg.cross_attention_dim)
@@ -112,6 +133,10 @@ class TriplaneTurboTextTo3DPipeline:
         text_encoder = text_encoder.to_empty(device=device).eval()
         init_random_(geometry, gen)
         init_random_(text_encoder, gen)
+        if path:
+            from ..utils.checkpoint import maybe_load_pipeline_params
+
+            maybe_load_pipeline_params(path, geometry, text_encoder)
         tok_dir = os.path.join(cfg.base_model_name_or_path, "tokenizer")
         tokenizer = (CLIPTokenizer.from_pretrained(tok_dir)
                      if cfg.base_model_name_or_path and os.path.isdir(tok_dir)
@@ -209,7 +234,9 @@ class TriplaneTurboTextTo3DPipeline:
         return meshes
 
 
-def export_obj(mesh: Mesh, save_path: str) -> List[str]:
-    """Vertex-colored OBJ of one mesh."""
-    return [save_obj(save_path, mesh.v_pos, mesh.t_pos_idx, v_rgb=mesh.v_rgb,
+def export_obj(mesh: Mesh, save_path: str, save_normal: bool = False) -> List[str]:
+    """Vertex-colored OBJ of one mesh, with its area-weighted vertex normals when
+    ``save_normal`` (the native writer without them, the Python one with)."""
+    v_nrm = mesh.vertex_normals() if save_normal else None
+    return [save_obj(save_path, mesh.v_pos, mesh.t_pos_idx, v_rgb=mesh.v_rgb, v_nrm=v_nrm,
                      v_mask=mesh.v_mask, t_mask=mesh.t_mask)]

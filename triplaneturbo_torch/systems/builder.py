@@ -48,11 +48,10 @@ def build_teacher(kind: str, generator: torch.Generator, sizes: Optional[Dict[st
                   dtype_str: str = "bfloat16", device: Union[str, torch.device] = "cuda",
                   ckpt_path: Optional[str] = None) -> TeacherBundle:
     """One frozen teacher, ``kind`` in ("mv", "rd", "sd"), with random weights drawn
-    from ``generator`` (on ``device``). ``sizes`` overrides fields of the UNet config;
-    its ``vae_``-prefixed keys override the VAE's."""
-    if ckpt_path:
-        raise NotImplementedError(
-            f"loading the {kind} teacher from {ckpt_path} waits for ROADMAP A20")
+    from ``generator`` (on ``device``), then, given ``ckpt_path``, the weights of that
+    checkpoint in any layout ``utils/checkpoint.py`` ``load_teacher_params`` reads.
+    ``sizes`` overrides fields of the UNet config; its ``vae_``-prefixed keys override
+    the VAE's."""
     if kind not in _CONFIGS:
         raise ValueError(kind)
     device = torch.device(device)
@@ -67,6 +66,11 @@ def build_teacher(kind: str, generator: torch.Generator, sizes: Optional[Dict[st
     unet = _materialise(unet, device, dtype, generator)
     if vae is not None:
         vae = _materialise(vae, device, dtype, generator)
+    if ckpt_path:
+        from ..utils.checkpoint import load_teacher_params
+
+        load_teacher_params(ckpt_path, unet, vae, n_blocks=len(ucfg.block_out_channels),
+                            layers_per_block=ucfg.layers_per_block)
     return TeacherBundle(unet, vae)
 
 
@@ -83,9 +87,10 @@ def build_system(cfg: Dict[str, Any], seed: int = 0,
                  device: Union[str, torch.device] = "cuda"):
     """The training system a config describes (see ``configs/triplaneturbo_v1.yaml``),
     on ``device`` with random weights from ``seed``; ``system.weights`` then loads the
-    geometry from a ``geometry.pt`` of the port's. The reference's weight formats and
-    the teachers' ``*_ckpt_path`` keys name checkpoints whose readers wait for ROADMAP
-    A20; the ``*_model_name_or_path`` keys are dropped, as in the JAX builder."""
+    geometry from a ``geometry.pt`` of the port's or the reference's adapter ``.pth``,
+    and the guidance's ``{mv,rd,sd}_ckpt_path`` keys load the teachers (any layout of
+    ``load_teacher_params``); the ``*_model_name_or_path`` keys are dropped, as in the
+    JAX builder."""
     from ..models.background.hashgrid_env_map import HashgridBackgroundConfig, HyperNetConfig
     from ..models.geometry.space_generator import SpaceGeneratorConfig
     from ..models.guidance.asd_guidance import ASDConfig
@@ -115,12 +120,9 @@ def build_system(cfg: Dict[str, Any], seed: int = 0,
     patch_cfg = parse_structured(PatchRendererConfig, _sub(sys_cfg, "patch"))
     # -- teachers and guidance
     guidance_d = _sub(sys_cfg, "guidance")
+    ckpt_paths = {kind: guidance_d.pop(f"{kind}_ckpt_path", None) for kind in ("mv", "rd", "sd")}
     for kind in ("mv", "rd", "sd"):
-        path = guidance_d.pop(f"{kind}_ckpt_path", None)
         guidance_d.pop(f"{kind}_model_name_or_path", None)
-        if path:
-            raise NotImplementedError(
-                f"loading the {kind} teacher from {path} waits for ROADMAP A20")
     # -- the trainer's and the loss's configs
     trainer_cfg = parse_structured(TrainerConfig, sys_cfg)
     trainer_cfg.loss = parse_structured(LossConfig, _sub(sys_cfg, "loss"))
@@ -130,7 +132,7 @@ def build_system(cfg: Dict[str, Any], seed: int = 0,
         geometry_overrides={k: geo_d[k] for k in _GEOMETRY_KEYS if k in geo_d},
         background_cfg=bg_cfg, renderer_cfg=renderer_cfg, volume_cfg=volume_cfg,
         patch_cfg=patch_cfg, teacher_sizes=_sub(sys_cfg, "teacher_sizes"),
-        teacher_dtype=sys_cfg.get("teacher_dtype", "bfloat16"),
+        teacher_dtype=sys_cfg.get("teacher_dtype", "bfloat16"), teacher_ckpt_paths=ckpt_paths,
         guidance_cfg=parse_structured(ASDConfig, guidance_d),
         color_activation=sys_cfg.get("color_activation", "sigmoid-mipnerf"))
     if weights:

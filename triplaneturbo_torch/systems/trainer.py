@@ -227,6 +227,7 @@ class TriplaneTurboTrainer:
               patch_cfg: Optional[PatchRendererConfig] = None,
               teacher_sizes: Optional[Dict[str, Dict[str, Any]]] = None,
               teacher_dtype: str = "bfloat16",
+              teacher_ckpt_paths: Optional[Dict[str, Optional[str]]] = None,
               guidance_cfg: Optional[ASDConfig] = None,
               geometry_overrides: Optional[Dict[str, Any]] = None,
               color_activation: str = "sigmoid-mipnerf") -> "TriplaneTurboTrainer":
@@ -239,7 +240,8 @@ class TriplaneTurboTrainer:
         overrides of each teacher's config, ``{}`` for the full size) builds the
         three frozen teachers in ``teacher_dtype`` from ``seed + 1``, and the
         guidance over them; without it the trainer has no teachers and program G
-        raises (programs R, B-R, B-G and the update need none).
+        raises (programs R, B-R, B-G and the update need none). ``teacher_ckpt_paths``
+        ({"mv": path, ...}) loads a teacher's weights over the random ones.
         ``geometry_overrides`` sets fields of the geometry's config besides the
         space generator's; ``color_activation`` is the material's.
         :func:`~triplaneturbo_torch.systems.builder.build_system` calls this with
@@ -266,8 +268,9 @@ class TriplaneTurboTrainer:
         guidance = None
         if teacher_sizes is not None:
             teacher_gen = torch.Generator(device=device).manual_seed(seed + 1)
+            paths = teacher_ckpt_paths or {}
             teachers = {kind: build_teacher(kind, teacher_gen, teacher_sizes.get(kind),
-                                            teacher_dtype, device)
+                                            teacher_dtype, device, ckpt_path=paths.get(kind))
                         for kind in ("mv", "rd", "sd")}
             guidance = ASDGuidance(guidance_cfg, schedule=schedule, **teachers)
         return cls(cfg, geometry, schedule, background,

@@ -1,4 +1,4 @@
-"""Checkpoint I/O as ``torch.save`` files of tensors, read back with ``weights_only``.
+"""Checkpoint I/O: the port's ``torch.save`` files and the reference's checkpoints.
 
 Counterpart of ``triplaneturbo_tpu/utils/checkpoint.py`` without flax or orbax:
 :func:`save_params` / :func:`load_params` hold a module's ``state_dict`` (the
@@ -7,23 +7,35 @@ hold what a resumed run needs: the trainer's trainable partition by name, the
 guarded Adan state (Adan's step count and moments, the accumulation cycle and the
 finiteness gate's counters), ``global_step`` and the states of the host generators
 that draw a step's timesteps and batch, so that a resumed run takes the steps an
-uninterrupted one would. :func:`load_weights` reads ``system.weights`` in the
-port's format (a ``geometry.pt``).
+uninterrupted one would. :func:`load_weights` reads ``system.weights``: the port's
+``geometry.pt`` or the reference's adapter ``.pth``.
 
-The readers of the reference's formats (the adapter ``.pth`` through the name
-conversion, flax ``msgpack`` files, pipeline directories, teacher checkpoints) wait
-for ROADMAP A20.
+The readers of the reference's formats, after the JAX module: the adapter ``.pth``
+(:func:`load_torch_adapter`), teacher checkpoints in the diffusers and LDM layouts
+(:func:`load_teacher_params`) and pipeline directories
+(:func:`maybe_load_pipeline_params`), through ``utils/convert_torch.py``. The flax
+``msgpack`` files the JAX package itself writes wait for ROADMAP A20b.
 """
 
 from __future__ import annotations
 
+import logging
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .convert_torch import (
+    apply_flat_to_module,
+    convert_adapters,
+    convert_ldm_teacher,
+    convert_unet,
+    convert_vae,
+)
+
 TRAIN_STATE_FILE = "train_state.pt"
+_LOG = logging.getLogger("triplaneturbo_torch")
 
 
 def save_params(path: str, module: torch.nn.Module) -> str:
@@ -121,31 +133,203 @@ def load_train_state(path: str, trainer,
     return trainer.global_step
 
 
+def _a20b(path: str):
+    raise NotImplementedError(
+        f"reading {path}, a flax msgpack file of the JAX package, waits for ROADMAP A20b")
+
+
 def check_weights_format(path: str) -> None:
-    """Raise unless ``path`` is a ``system.weights`` file :func:`load_weights` reads."""
-    if not str(path).endswith(".pt"):
-        _a20(f"the weights {path} (the port reads its own geometry.pt)")
+    """Raise unless ``path`` is a ``system.weights`` file :func:`load_weights` reads:
+    the port's ``geometry.pt`` or the reference's adapter ``.pth``. The JAX package's
+    flax ``.msgpack`` raises naming ROADMAP A20b; a missing file raises before the
+    system is built."""
+    path = str(path)
+    if path.endswith(".msgpack"):
+        _a20b(path)
+    if not path.endswith((".pt", ".pth")):
+        raise ValueError(f"system.weights {path}: a geometry.pt of the port or an adapter .pth")
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
 
 
 def load_weights(path: str, trainer) -> None:
-    """``system.weights``: the geometry's ``state_dict`` from a ``geometry.pt`` that
-    :func:`save_params` wrote (module weights without optimizer state, as the
-    reference's ``system.weights``)."""
+    """``system.weights``: module weights without optimizer state, as the reference's:
+    the geometry's ``state_dict`` from a ``geometry.pt`` that :func:`save_params`
+    wrote, or the reference's adapter ``.pth`` through :func:`load_torch_adapter`
+    (as the JAX builder reads it)."""
     check_weights_format(path)
-    load_params(path, trainer.geometry)
+    if str(path).endswith(".pth"):
+        load_torch_adapter(str(path), trainer.geometry)
+    else:
+        load_params(path, trainer.geometry)
 
 
-def _a20(what: str):
-    raise NotImplementedError(f"reading {what} waits for ROADMAP A20")
+# -- the reference's formats ---------------------------------------------------
+#
+# Lightning, LDM and diffusers checkpoints are pickles that carry non-tensor
+# entries (epoch, global_step, EMA bookkeeping), so they are read with
+# ``torch.load(..., weights_only=False)``, as the JAX package reads them: that
+# unpickles, and runs whatever code the file names. Read only checkpoints you trust.
 
 
-def load_torch_adapter(path: str, geometry: torch.nn.Module, strict: bool = False):
-    _a20(f"the reference's adapter checkpoint {path}")
+def _torch_load(path: str) -> Any:
+    return torch.load(path, map_location="cpu", weights_only=False)
 
 
-def maybe_load_pipeline_params(path: str, geometry: torch.nn.Module, text_encoder):
-    _a20(f"pipeline weights from {path}")
+def _state_numpy(state: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().float().numpy() if hasattr(v, "detach") else np.asarray(v)
+            for k, v in state.items()}
 
 
-def load_teacher_params(path: str, unet, vae=None, **kwargs):
-    _a20(f"the teacher checkpoint {path}")
+def _torch_state_numpy(path: str) -> Dict[str, np.ndarray]:
+    """A torch checkpoint's state dict (its ``state_dict`` entry, or the whole file)
+    as float32 numpy arrays. Unpickles ``path``."""
+    ckpt = _torch_load(path)
+    return _state_numpy(ckpt.get("state_dict", ckpt))
+
+
+def _without(flat: Dict[str, np.ndarray], lacks: Tuple[str, ...]) -> Dict[str, np.ndarray]:
+    """The entries of ``flat`` under none of the path prefixes ``lacks``: the parts of
+    a reference checkpoint that the port's module has no place for by design."""
+    return {k: v for k, v in flat.items() if not k.startswith(lacks)}
+
+
+def _apply(flat: Dict[str, np.ndarray], module: torch.nn.Module, what: str,
+           strict: bool, prefix: str = "") -> Tuple[List[str], List[str]]:
+    """Write ``flat`` onto ``module`` (under ``prefix``); log the counts, warn of (or,
+    with ``strict``, raise on) every key that did not load. Returns (names loaded,
+    keys not)."""
+    loaded, mismatched = apply_flat_to_module(flat, module, prefix)
+    _LOG.info("%s: %d tensors loaded, %d unmatched", what, len(loaded), len(mismatched))
+    for m in mismatched[:20]:
+        _LOG.warning("  %s mismatch: %s", what, m)
+    if mismatched and strict:
+        raise ValueError(f"strict {what} load failed: {len(mismatched)} mismatches: "
+                         f"{mismatched[:10]}")
+    return loaded, mismatched
+
+
+def _unloaded(what: str, module: torch.nn.Module, loaded: List[str], strict: bool) -> List[str]:
+    """The parameters of ``module`` that ``loaded`` does not name, which keep their
+    random initialisation: warned of, or with ``strict`` raised on."""
+    missing = sorted({n for n, _ in module.named_parameters()} - set(loaded))
+    if missing:
+        msg = (f"{what}: {len(missing)} parameters not loaded, left at their random "
+               f"initialisation: {missing[:5]}")
+        if strict:
+            raise ValueError(f"strict {msg}")
+        _LOG.warning(msg)
+    return missing
+
+
+def load_torch_adapter(path: str, geometry: torch.nn.Module,
+                       strict: bool = False) -> Tuple[List[str], List[str]]:
+    """The released adapter checkpoint (``triplane_turbo_sd_v1.pth``:
+    ``{state_dict, epoch, global_step}`` with ``geometry.*`` keys) onto a
+    ``TriplaneGeometry``, in place, through ``convert_adapters`` (hexa-LoRA,
+    vanilla LoRA, LoCon, the ``conv_out`` retrofit, the field MLPs). With ``strict``
+    every converted tensor must land; otherwise mismatches are logged. Returns (the
+    names loaded, the keys that did not load). Unpickles ``path``."""
+    state = {k.replace("geometry.", "", 1): v for k, v in _torch_state_numpy(path).items()}
+    return _apply(convert_adapters(state), geometry, "adapter", strict)
+
+
+def maybe_load_pipeline_params(path: str, geometry: torch.nn.Module,
+                               text_encoder: torch.nn.Module):
+    """The pipeline's weights, in place: from a directory of the port's
+    ``geometry.pt`` and ``text_encoder.pt`` (what ``tools/convert_checkpoints.py``
+    writes; the JAX package reads its own ``.msgpack`` files there, which raise
+    naming ROADMAP A20b), or from an adapter ``.pth`` over the backbone the modules
+    hold. Unlike the JAX reader, a directory without one of the two files, or a path
+    that is neither, raises ``FileNotFoundError`` rather than leaving weights random."""
+    path = str(path)
+    if os.path.isdir(path):
+        for name, module in (("geometry", geometry), ("text_encoder", text_encoder)):
+            pt = os.path.join(path, f"{name}.pt")
+            if os.path.exists(pt):
+                load_params(pt, module)
+                _LOG.info("loaded %s from %s", name, pt)
+            elif os.path.exists(os.path.join(path, f"{name}.msgpack")):
+                _a20b(os.path.join(path, f"{name}.msgpack"))
+            else:
+                raise FileNotFoundError(f"{path} holds no {name}.pt")
+    elif path.endswith(".msgpack"):
+        _a20b(path)
+    elif path.endswith(".pth") and os.path.exists(path):
+        load_torch_adapter(path, geometry)
+    else:
+        raise FileNotFoundError(f"{path}: a pipeline directory or an adapter .pth")
+    return geometry, text_encoder
+
+
+# what a whole VAE's checkpoint holds and a teacher's encoder-only VAE has no place for
+_TEACHER_VAE_LACKS = ("decoder/", "post_quant_conv/")
+
+
+def _is_port_teacher(ckpt: Any) -> bool:
+    return (isinstance(ckpt, dict) and set(ckpt) == {"unet", "vae"}
+            and isinstance(ckpt["unet"], dict))
+
+
+def load_teacher_params(path: str, unet: torch.nn.Module, vae: Optional[torch.nn.Module] = None,
+                        n_blocks: int = 4, layers_per_block: int = 2, strict: bool = False
+                        ) -> Dict[str, Tuple[List[str], List[str]]]:
+    """A teacher's weights, in place, from any of the reference's layouts:
+
+    * a diffusers directory (``unet/`` and ``vae/`` ``diffusion_pytorch_model.bin``):
+      the SD-2.1 teacher;
+    * ``*.pt`` / ``*.ckpt`` with ``model.diffusion_model.*`` keys: the LDM layout
+      (MVDream ``sd-v2.1-base-4view.pt``, RichDreamer ``nd_mv_ema.ckpt``), whose
+      ``model_ema`` shadows win;
+    * a bare diffusers UNet state dict;
+    * the port's own ``{kind}_teacher.pt`` (``{"unet": state_dict, "vae":
+      state_dict or {}}``, what ``tools/convert_checkpoints.py`` writes), where the JAX
+      package reads its ``{kind}_teacher.msgpack`` (which raises naming ROADMAP A20b).
+
+    A whole VAE's decoder half is left out for the teacher's encoder. A path that
+    gives the UNet no tensor raises ``ValueError``; a parameter left at its random
+    initialisation is warned of. With ``strict`` every converted tensor must land and
+    every parameter of ``unet`` and ``vae`` must be loaded. Returns ``{"unet": (names
+    loaded, keys not), "vae": ...}``. Unpickles ``path``."""
+    out: Dict[str, Tuple[List[str], List[str]]] = {}
+
+    def apply(flat, module, what, lacks=()):
+        if module is not None:
+            out[what] = _apply(_without(flat, lacks), module, f"teacher {what}", strict)
+
+    path = str(path)
+    if path.endswith(".msgpack"):
+        _a20b(path)
+    if os.path.isdir(path):
+        unet_bin = os.path.join(path, "unet", "diffusion_pytorch_model.bin")
+        vae_bin = os.path.join(path, "vae", "diffusion_pytorch_model.bin")
+        if os.path.exists(unet_bin):
+            apply(convert_unet(_torch_state_numpy(unet_bin), n_blocks, layers_per_block),
+                  unet, "unet")
+        if vae is not None and os.path.exists(vae_bin):
+            apply(convert_vae(_torch_state_numpy(vae_bin), n_blocks, layers_per_block),
+                  vae, "vae", _TEACHER_VAE_LACKS)
+    else:
+        ckpt = _torch_load(path)
+        if _is_port_teacher(ckpt):
+            unet.load_state_dict(ckpt["unet"])
+            out["unet"] = (list(ckpt["unet"]), [])
+            if vae is not None:
+                vae.load_state_dict(ckpt["vae"])
+                out["vae"] = (list(ckpt["vae"]), [])
+        else:
+            state = _state_numpy(ckpt.get("state_dict", ckpt))
+            del ckpt
+            if any(k.startswith("model.diffusion_model.") for k in state):
+                conv = convert_ldm_teacher(state, n_blocks, layers_per_block)
+                apply(conv["unet"], unet, "unet")
+                apply(conv["vae"], vae, "vae", _TEACHER_VAE_LACKS)
+            else:
+                apply(convert_unet(state, n_blocks, layers_per_block), unet, "unet")
+    if not out.get("unet", ([], []))[0]:
+        raise ValueError(f"{path} gave the teacher's UNet no tensor: a diffusers directory "
+                         "with unet/, an LDM or diffusers UNet checkpoint, or a teacher .pt")
+    for what, module in (("unet", unet), ("vae", vae)):
+        if module is not None:
+            _unloaded(f"teacher {what}", module, out.get(what, ([], []))[0], strict)
+    return out

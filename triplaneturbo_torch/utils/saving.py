@@ -1,9 +1,9 @@
 """Artifacts on the host: vertex-colored OBJ meshes, image grids, turntables.
 
-Counterpart of ``triplaneturbo_tpu/utils/saving.py``. ``save_obj`` has the
-Python writer only (the native C++ writer is not ported yet); masked
-fixed-capacity buffers are compacted here: invalid vertices are dropped and the
-faces reindexed. ``save_image_grid`` writes a PNG with a writer of its own
+Counterpart of ``triplaneturbo_tpu/utils/saving.py``. ``save_obj`` writes
+through the native C++ writer, or through Python when it writes normals; masked
+fixed-capacity buffers are compacted: invalid vertices are dropped and the faces
+reindexed. ``save_image_grid`` writes a PNG with a writer of its own
 (``zlib`` + ``struct``); ``save_video`` writes through imageio where it imports,
 as the JAX package does, and otherwise an animated PNG with the same writer.
 """
@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import List, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,15 +23,28 @@ def _to_numpy(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def save_obj(path: str, v_pos, t_pos_idx, v_rgb=None, v_mask=None, t_mask=None) -> str:
+def save_obj(path: str, v_pos, t_pos_idx, v_rgb=None, v_nrm=None, v_mask=None,
+             t_mask=None) -> str:
+    """Write a (vertex-colored) OBJ; masked fixed-capacity buffers are compacted:
+    invalid vertices are dropped and the faces reindexed. Without normals the native
+    C++ writer writes it (``utils/native.py``; colors ``%.6f``); with ``v_nrm`` the
+    Python writer (colors ``%.4f``, a ``vn`` line a vertex), the split of the JAX
+    ``utils/saving.py``."""
     v = _to_numpy(v_pos).astype(np.float32)
     f = _to_numpy(t_pos_idx).astype(np.int64)
     rgb = None if v_rgb is None else np.clip(_to_numpy(v_rgb).astype(np.float32), 0.0, 1.0)
+    if v_nrm is None:
+        from .native import write_obj_native
+
+        return write_obj_native(path, v, f.astype(np.int32), rgb,
+                                None if v_mask is None else _to_numpy(v_mask),
+                                None if t_mask is None else _to_numpy(t_mask))
+    nrm = _to_numpy(v_nrm).astype(np.float32)
     if v_mask is not None:
         vm = _to_numpy(v_mask).astype(bool)
         remap = -np.ones(len(v), np.int64)
         remap[vm] = np.arange(vm.sum())
-        v = v[vm]
+        v, nrm = v[vm], nrm[vm]
         rgb = rgb[vm] if rgb is not None else None
         if t_mask is not None:
             f = f[_to_numpy(t_mask).astype(bool)]
@@ -41,15 +54,14 @@ def save_obj(path: str, v_pos, t_pos_idx, v_rgb=None, v_mask=None, t_mask=None) 
         f = f[_to_numpy(t_mask).astype(bool)]
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    lines: List[str] = []
+    # float32 -> Python float is exact, so each line reads as the JAX writer's
     if rgb is not None:
-        for p, c in zip(v, rgb):
-            lines.append(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {c[0]:.4f} {c[1]:.4f} {c[2]:.4f}")
+        lines = [f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {c[0]:.4f} {c[1]:.4f} {c[2]:.4f}"
+                 for p, c in zip(v.tolist(), rgb.tolist())]
     else:
-        for p in v:
-            lines.append(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}")
-    for tri in f:
-        lines.append(f"f {tri[0]+1} {tri[1]+1} {tri[2]+1}")
+        lines = [f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}" for p in v.tolist()]
+    lines += [f"vn {n[0]:.6f} {n[1]:.6f} {n[2]:.6f}" for n in nrm.tolist()]
+    lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in f.tolist()]
     with open(path, "w") as fh:
         fh.write("\n".join(lines) + "\n")
     return path

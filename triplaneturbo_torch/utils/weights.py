@@ -49,8 +49,9 @@ def _contiguous(arr: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(arr).reshape(arr.shape)
 
 
-def _torch_leaf(path: str, arr: np.ndarray):
-    """(torch parameter name, array in torch layout) for one flax leaf."""
+def _torch_leaf(path: str, arr: np.ndarray, contiguous: bool = True):
+    """(torch parameter name, array in torch layout) for one flax leaf; the array
+    is a view of ``arr`` unless ``contiguous``."""
     *mods, leaf = path.split("/")
     name = {"kernel": "weight", "scale": "weight", "embedding": "weight"}.get(leaf, leaf)
     if leaf == "kernel":
@@ -60,7 +61,7 @@ def _torch_leaf(path: str, arr: np.ndarray):
             arr = arr.transpose(3, 2, 0, 1)
         else:
             raise ValueError(f"{path}: kernel of rank {arr.ndim}")
-    return ".".join(mods + [name]), _contiguous(arr)
+    return ".".join(mods + [name]), _contiguous(arr) if contiguous else arr
 
 
 def flax_tree_to_named(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
