@@ -88,7 +88,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
                after, an exported OBJ, then one more ``__call__`` prompt under
                ``torch.profiler``: device-busy ms of each stage (the pipeline's
                ``record_function`` ranges), the idle share and the heaviest kernels.
-7. checkpoint -- the reference's checkpoints in, at full width in bf16:
+7. locon    -- the per-plane LoCon (``locon_type="hexa_v1"``): the small kernel-taking
+               student with every plane's ``up`` drawn nonzero, card against CPU
+               (latents, space cache; SMALL_REL_TOL); then the full-width student with
+               ``hexa_v1`` in bf16, three prompts timed against the shipped ``vanilla_v1``
+               pipeline's, alternating, with their launch counts (101 + 1 a prompt), and
+               one more prompt of each under ``torch.profiler`` (device-busy ms, in all
+               and of the denoise stage).
+8. eval     -- the evaluation harness: ``render_mesh_views`` of the full-width prompt's
+               mesh at 4 x 512² (each view's ms and its rasterize share, the per-view
+               overflow counts that the JAX harness drops), ``CLIPScorer`` at ViT-B/32
+               and its 512-wide text tower on random towers (features, scores, ms), and
+               ``run_eval.main`` over 3 prompts into a temporary directory (the metrics
+               file, OBJs and grids; launch counts).
+9. demo     -- the demo server (``triplaneturbo_torch.demo``) around the full-width
+               pipeline in a thread on a free localhost port: three ``/generate``
+               requests over ``http.client``, each answered with a PNG strip of four 256²
+               views and an OBJ with faces, the median request ms; ``/file`` refuses a
+               sibling of its root and a path outside it.
+10. checkpoint -- the reference's checkpoints in, at full width in bf16:
                ``tools/reference_layout.py`` writes the seed-0 pipeline as an SD-2.1-base
                diffusers directory (``unet``, ``vae``, ``text_encoder``) and
                ``triplane_turbo_sd_v1.pth``, and a full MVDream teacher as an LDM ``.pt``
@@ -99,7 +117,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                their sources, one prompt with fixed latents equal to the source
                pipeline's (latents, space cache, mesh); seconds of writing, converting,
                loading and the first prompt.
-8. export   -- the loaded pipeline's full-width mesh in every format: ``export_obj``
+11. export  -- the loaded pipeline's full-width mesh in every format: ``export_obj``
                (the native C++ writer), ``export_obj(save_normal=True)`` (the Python
                writer) and the mesh exporter's ``obj-mtl`` (a 1024² texture baked from
                the texture field on the card): counts equal to the masks' sums, the
@@ -108,13 +126,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                faces); the card's bake against the CPU route's: the UV atlas equal,
                bit-equal textures with a pointwise ramp (the same winning faces and
                texels), within 1e-3 with the field closure.
-9. launcher -- ``python3 -m triplaneturbo_torch.launch`` through ``launch.main`` on the
+12. launcher -- ``python3 -m triplaneturbo_torch.launch`` through ``launch.main`` on the
                card, ``configs/smoke_tiny.yaml`` widened to the small kernel-taking model:
                ``--train`` for 2 steps (every kernel launched), ``--resume`` from its
                step-2 checkpoint for one more (the restored trainable partition, Adan
                state and step bit-equal to the saved ones), ``--validate`` (4 views: the
                grid PNG and the turntable) and ``--export`` (a non-empty OBJ a prompt).
-10. training -- the v1 recipe at full width through the port's launcher: ``launch.main``
+13. training -- the v1 recipe at full width through the port's launcher: ``launch.main``
                with ``configs/triplaneturbo_v1.yaml`` as written (gradient checkpointing
                on) but for the log, checkpoint and validation intervals and
                ``field_chunk``, for three steps of ``train_step``: two prompts x four
@@ -142,6 +160,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                ``render_2nd`` and ``render_backward_2nd``, with the ray and sample
                counts, and ``render_backward_2nd``'s time and peak memory at each
                ``field_chunk`` of a sweep.
+14. parallel -- data parallelism (``triplaneturbo_torch/parallel``) on the one card: NCCL
+               at world size 1, the small model's staged step (2 prompts x 4 views, the v1
+               loss; every kernel launched) through the reduced-gradient path against the
+               same step with no process group, bit for bit where two steps with no group
+               repeat bit for bit, and a gradient replayed through the reduction bit for
+               bit; then two gloo ranks spawned on the card (``chip_smoke.py
+               --parallel-worker``), one prompt each: both hold the same parameters bit
+               for bit after the step, equal to the one-process step within
+               WHOLE_STEP_TOL and WHOLE_STEP_GRAD_TOL; the step and reduction times. A
+               run across several cards waits for a machine with more than one.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Float32 matmuls and cuDNN convolutions run
@@ -2504,6 +2532,575 @@ def phase_launcher():
     torch.cuda.empty_cache()
 
 
+# -- this slice's paths: the per-plane LoCon, the evaluation harness, the demo and data
+# -- parallelism; each phase sets the launch counts to 0 just before its path and reads
+# -- them just after
+
+def phase_locon(pipe):
+    """``locon_type="hexa_v1"``: the small kernel-taking student (every plane's LoCon
+    ``up`` drawn nonzero) on the card against the CPU under SMALL_REL_TOL; then the
+    full-width student with ``hexa_v1``, its prompts timed against the shipped
+    ``vanilla_v1`` pipeline's (``pipe``), alternating, in the same call, and one prompt
+    of each profiled (device-busy ms)."""
+    t_phase = time.perf_counter()
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+    from triplaneturbo_torch.models.clip_text import CLIPTextConfig
+    from triplaneturbo_torch.pipelines.triplaneturbo_text_to_3d import (
+        TriplaneTurboTextTo3DPipeline,
+    )
+
+    reset_counts, read_counts = _count_launches()
+    sg = {**SMALL_SG, "locon_type": "hexa_v1"}
+    pipes = {dev: TriplaneTurboTextTo3DPipeline.from_pretrained(
+        None, device=dev, seed=0, space_generator_overrides=sg,
+        text_config=CLIPTextConfig(**SMALL_TEXT), **SMALL_KW) for dev in ("cpu", "cuda")}
+    gen = torch.Generator().manual_seed(13)
+    with torch.no_grad():
+        for n, p in pipes["cpu"].geometry.named_parameters():
+            if n.endswith("planes.up.weight"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    pipes["cuda"].geometry.load_state_dict(pipes["cpu"].geometry.state_dict())
+    pipes["cuda"].text_encoder.load_state_dict(pipes["cpu"].text_encoder.state_dict())
+    r = SMALL_KW["latent_resolution"]
+    latents = torch.randn((1, 6, r, r, 4), generator=torch.Generator().manual_seed(1))
+    reset_counts()
+    outs = {dev: p("a photo of a hamburger", latents=latents) for dev, p in pipes.items()}
+    torch.cuda.synchronize()
+    small_launches = read_counts()
+    check(small_launches["flash_attn_fwd"] > 0 and small_launches["field_grid"] == 1,
+          f"locon: the small hexa_v1 student did not take both kernels: {small_launches}")
+    row = {"phase": "locon", "what": "hexa_v1 small student, card (kernels) vs CPU (plain), f32",
+           "rel_tol": SMALL_REL_TOL, "small_launches": small_launches,
+           "hexa_leaves": sum(".locon.planes." in n for n, _ in
+                              pipes["cuda"].geometry.named_parameters())}
+    for name in ("latents", "space_cache"):
+        a, b = outs["cuda"][name].float().cpu(), outs["cpu"][name]
+        check(bool(torch.isfinite(a).all()), f"locon: non-finite {name} on the card")
+        rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+        row[f"{name}_rel_err"] = rel
+        check(rel <= SMALL_REL_TOL, f"locon: {name} rel err {rel} > {SMALL_REL_TOL}")
+    del pipes, outs
+
+    hexa = TriplaneTurboTextTo3DPipeline.from_pretrained(
+        None, device="cuda", dtype_str="bfloat16", seed=0,
+        space_generator_overrides={"locon_type": "hexa_v1"})
+    row["hexa_params"] = sum(p.numel() for p in hexa.geometry.parameters())
+    row["vanilla_params"] = sum(p.numel() for p in pipe.geometry.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    for p in (hexa, pipe):  # warm-up
+        p("a delicious hamburger", generator=gen)
+    ms = {"hexa_v1": [], "vanilla_v1": []}
+    launches = {"flash_attn_fwd": 0, "field_grid": 0}
+    faces = []
+    for prompt in ("a wooden chair", "a red sports car", "a ceramic teapot"):
+        for name, p in (("vanilla_v1", pipe), ("hexa_v1", hexa)):
+            torch.cuda.synchronize()
+            if name == "hexa_v1":
+                reset_counts()
+            t = time.perf_counter()
+            out = p(prompt, generator=gen)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t) * 1e3)
+            if name == "hexa_v1":
+                got = read_counts()
+                for k in launches:
+                    launches[k] += got[k]
+                m = out["mesh"][0]
+                check(bool(torch.isfinite(m.v_pos[m.v_mask]).all())
+                      and bool(torch.isfinite(out["space_cache"]).all()),
+                      "locon: non-finite hexa_v1 output")
+                faces.append(int(m.t_mask.sum()))
+    check(launches == {"flash_attn_fwd": 3 * K1_LAUNCHES_PER_PROMPT,
+                       "field_grid": 3 * K2_LAUNCHES_PER_PROMPT},
+          f"locon: hexa_v1 prompts launched {launches}")
+    check(all(f > 0 for f in faces), f"locon: empty hexa_v1 mesh {faces}")
+    # one more prompt each under the profiler: the device-busy ms, in all and of the UNet
+    busy = {}
+    for name, p in (("vanilla_v1", pipe), ("hexa_v1", hexa)):
+        with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            p("a wooden chair", generator=gen)
+            torch.cuda.synchronize()
+        total, stages, _, _ = _profile_split(prof)
+        busy[name] = {"prompt": total, "denoise": stages["denoise"]}
+    row.update(prompt_ms=ms, prompt_ms_median={k: statistics.median(v) for k, v in ms.items()},
+               device_busy_ms=busy, launches=launches, faces=faces,
+               phase_s=time.perf_counter() - t_phase)
+    emit(row)
+    del hexa
+    torch.cuda.empty_cache()
+
+
+EVAL_PROMPTS = ["a delicious hamburger", "a wooden chair", "a ceramic teapot"]
+
+
+def phase_eval(pipe):
+    """The evaluation harness at full width: ``render_mesh_views`` of the full-width
+    prompt's mesh at 4 x 512² (each view's ms and its rasterize share, the per-view
+    overflow counts), ``CLIPScorer`` at ViT-B/32 and its 512-wide text tower on random
+    towers (ms), its features, cosines and score held against the same towers on the
+    CPU (SMALL_REL_TOL), then ``run_eval.main`` over 3 prompts into a temporary
+    directory."""
+    t_phase = time.perf_counter()
+    import statistics
+
+    import copy
+
+    import torch
+    from triplaneturbo_torch.evaluation import run_eval
+    from triplaneturbo_torch.evaluation.clipscore import W as clip_W
+    from triplaneturbo_torch.evaluation.clipscore import CLIPScorer
+    from triplaneturbo_torch.evaluation.mesh_render import (
+        kire_camera_rig,
+        prepare_mesh,
+        render_mesh_views,
+        render_view,
+    )
+    from triplaneturbo_torch.ops.rasterize import rasterize
+
+    reset_counts, read_counts = _count_launches()
+    mesh = pipe(EVAL_PROMPTS[0], generator=torch.Generator(device="cuda").manual_seed(42))[
+        "mesh"][0]
+    views = render_mesh_views(mesh)
+    imgs = views.images
+    check(tuple(imgs.shape) == (4, 512, 512, 3) and bool(torch.isfinite(imgs).all())
+          and float(imgs.min()) >= 0 and float(imgs.max()) <= 1, "eval: views")
+    covered = (imgs < 0.99).any(-1).float().mean(dim=(1, 2)).tolist()
+    check(all(c > 0 for c in covered), f"eval: a view shows nothing of the mesh {covered}")
+    prep = prepare_mesh(mesh, 512, 512)
+    rig = torch.from_numpy(kire_camera_rig(4)).cuda()
+    view_ms = [cuda_ms(lambda m=m: render_view(mesh, prep, m), iters=3, warmup=1) for m in rig]
+    raster_ms = [cuda_ms(lambda m=m: rasterize(prep.vh @ m.T, mesh.t_pos_idx, mesh.t_mask, 512,
+                                                512, faces_per_tile=2048, max_span=4,
+                                                big_face_cap=256), iters=3, warmup=1)
+                 for m in rig]
+    prepare_ms = cuda_ms(lambda: prepare_mesh(mesh, 512, 512), iters=3, warmup=1)
+
+    t = time.perf_counter()
+    scorer = CLIPScorer(device="cuda", seed=0)
+    torch.cuda.synchronize()
+    scorer_build_s = time.perf_counter() - t
+    feats = scorer.image_features(imgs)
+    check(tuple(feats.shape) == (4, 512) and bool(((feats.norm(dim=-1) - 1).abs() < 1e-4).all()),
+          "eval: image features")
+    image_ms = cuda_ms(lambda: scorer.image_features(imgs), iters=5)
+    text_ms = cuda_ms(lambda: scorer.text_features(EVAL_PROMPTS), iters=5)
+    score_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        scores = scorer.score({p: imgs for p in EVAL_PROMPTS})
+        score_ms.append((time.perf_counter() - t) * 1e3)
+    check(0.0 <= scores["clip_score"] <= 2.5 and 0.0 <= scores["recall_at_1"] <= 1.0,
+          f"eval: scores {scores}")
+    # the same towers on the CPU: features, the cosines before the clamp, and the score
+    # recomputed from them as W * max(cos, 0) averaged over views and prompts (random
+    # towers can give every cosine one sign, and a range check then holds nothing)
+    cpu = CLIPScorer(vision=copy.deepcopy(scorer.vision).cpu(),
+                     text=copy.deepcopy(scorer.text).cpu(),
+                     text_projection=scorer.text_projection.cpu(), tokenizer=scorer.tokenizer,
+                     device="cpu")
+    tfeat = scorer.text_features(EVAL_PROMPTS)
+    cpu_feats, cpu_tfeat = cpu.image_features(imgs.cpu()), cpu.text_features(EVAL_PROMPTS)
+    cos, cpu_cos = (feats @ tfeat.T).cpu(), cpu_feats @ cpu_tfeat.T  # [view, prompt]
+    feat_err = max(float((feats.cpu() - cpu_feats).abs().max()),
+                   float((tfeat.cpu() - cpu_tfeat).abs().max()))
+    cos_err = float((cos - cpu_cos).abs().max())
+    # the text projection negated flips every cosine's sign, so one of the two scores
+    # holds the clamp on cosines above 0 whatever sign the random towers give them
+    flipped = CLIPScorer(vision=scorer.vision, text=scorer.text,
+                         text_projection=-scorer.text_projection, tokenizer=scorer.tokenizer,
+                         device="cuda").score({p: imgs for p in EVAL_PROMPTS})["clip_score"]
+    want = [float(clip_W * (sign * cpu_cos).clamp_min(0).mean()) for sign in (1, -1)]
+    got = [scores["clip_score"], flipped]
+    check(feat_err <= SMALL_REL_TOL and cos_err <= SMALL_REL_TOL and max(want) > 0
+          and all(abs(g - w) <= clip_W * SMALL_REL_TOL for g, w in zip(got, want)),
+          f"eval: the card's scorer against the CPU's: features {feat_err}, cosines {cos_err}, "
+          f"scores (as is, projection negated) {got} against {want}")
+
+    tmp = tempfile.TemporaryDirectory()
+    lib = Path(tmp.name) / "lib.json"
+    lib.write_text(json.dumps({"train": EVAL_PROMPTS, "test": EVAL_PROMPTS}))
+    out = Path(tmp.name) / "eval"
+    reset_counts()
+    t = time.perf_counter()
+    metrics = run_eval.main(["--prompts", str(lib), "--out", str(out), "--limit", "3",
+                             "--save-obj", "--save-grid", "--device", "cuda"], pipe=pipe,
+                            scorer=scorer)
+    run_eval_s = time.perf_counter() - t
+    launches = read_counts()
+    check(launches["flash_attn_fwd"] == 3 * K1_LAUNCHES_PER_PROMPT
+          and launches["field_grid"] == 3 * K2_LAUNCHES_PER_PROMPT,
+          f"eval: run_eval launched {launches}")
+    on_disk = json.loads((out / "metrics_rank0.json").read_text())
+    check(on_disk["prompts"] == 3 and set(on_disk["overflow"]) == set(EVAL_PROMPTS)
+          and all(len(v["n_span_overflow"]) == 4 for v in on_disk["overflow"].values())
+          and 0.0 <= on_disk["clip_score"] <= 2.5, f"eval: metrics file {on_disk}")
+    for i, p in enumerate(EVAL_PROMPTS):
+        slug = run_eval.prompt_slug(i, p)
+        check((out / slug / "model.obj").stat().st_size > 0 and (out / f"{slug}.png").exists(),
+              f"eval: files of {p}")
+    tmp.cleanup()
+    emit({"phase": "eval", "what": "render_mesh_views 4 x 512² of the full-width prompt's mesh; "
+          "CLIPScorer ViT-B/32 + 512-wide text tower, random towers (seed 0); run_eval.main, "
+          "3 prompts", "faces": int(mesh.t_mask.sum()), "covered_share": covered,
+          "n_span_overflow": views.n_span_overflow.tolist(),
+          "n_list_overflow": views.n_list_overflow.tolist(),
+          "view_ms": view_ms, "rasterize_ms": raster_ms, "prepare_ms": prepare_ms,
+          "rasterize_share": sum(raster_ms) / sum(view_ms),
+          "scorer_build_s": scorer_build_s, "image_features_ms_4_views": image_ms,
+          "text_features_ms_3_prompts": text_ms, "score_ms_3_prompts": score_ms,
+          "score_ms_median": statistics.median(score_ms[1:]), "scores": scores,
+          "card_vs_cpu": {"features": feat_err, "cosines": cos_err, "tol": SMALL_REL_TOL,
+                          "scores_as_is_and_negated": got,
+                          "from_cpu_cosines": want},
+          "cosines_view_by_prompt": cos.tolist(),
+          "run_eval_s": run_eval_s, "run_eval_mean_latency_s": metrics["mean_latency_s"],
+          "run_eval_metrics": {k: metrics[k] for k in ("clip_score", "recall_at_1")},
+          "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    torch.cuda.empty_cache()
+
+
+def _http_get(port, path):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def phase_demo(pipe):
+    """``python3 -m triplaneturbo_torch.demo``'s server around the full-width pipeline, in a
+    thread on a free localhost port: three ``/generate`` requests over ``http.client``,
+    each answered with a 4-view 256² PNG strip and an OBJ with faces (fetched through
+    ``/file``), the median request ms; ``/file`` refuses a sibling of its root and a path
+    outside it."""
+    t_phase = time.perf_counter()
+    import re
+    import statistics
+    import threading
+    import urllib.parse
+
+    from triplaneturbo_torch import demo
+
+    reset_counts, read_counts = _count_launches()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name) / "outputs" / "demo"
+    srv = demo.serve(pipe, str(root), port=0, host="127.0.0.1")
+    port = srv.server_address[1]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    row = {"phase": "demo", "request_ms": [], "png_bytes": [], "obj_faces": []}
+    try:
+        reset_counts()
+        for i, prompt in enumerate(EVAL_PROMPTS):
+            t = time.perf_counter()
+            status, body = _http_get(port, "/generate?" + urllib.parse.urlencode(
+                {"prompt": prompt, "seed": i}))
+            row["request_ms"].append((time.perf_counter() - t) * 1e3)
+            check(status == 200, f"demo: /generate answered {status}")
+            links = [urllib.parse.unquote(p)
+                     for p in re.findall(r"/file\?p=([^']+)'", body.decode())]
+            png = [p for p in links if p.endswith(".png")]
+            obj = [p for p in links if p.endswith(".obj")]
+            check(len(png) == 1 and len(obj) == 1, f"demo: links {links}")
+            status, data = _http_get(port, "/file?p=" + urllib.parse.quote(png[0]))
+            check(status == 200 and data.startswith(b"\x89PNG\r\n\x1a\n"), "demo: the strip")
+            row["png_bytes"].append(len(data))
+            status, data = _http_get(port, "/file?p=" + urllib.parse.quote(obj[0]))
+            nf = sum(ln.startswith(b"f ") for ln in data.splitlines())
+            check(status == 200 and nf > 0, "demo: the OBJ")
+            row["obj_faces"].append(nf)
+        launches = read_counts()
+        check(launches["flash_attn_fwd"] == 3 * K1_LAUNCHES_PER_PROMPT
+              and launches["field_grid"] == 3 * K2_LAUNCHES_PER_PROMPT,
+              f"demo: launches {launches}")
+        sibling = Path(tmp.name) / "outputs" / "demo2" / "x"
+        sibling.parent.mkdir(parents=True)
+        sibling.write_text("not served")
+        refused = {p: _http_get(port, "/file?p=" + urllib.parse.quote(p))[0]
+                   for p in (str(sibling), "/etc/hostname", str(root / ".." / "demo2" / "x"))}
+        check(all(s == 404 for s in refused.values()), f"demo: /file served {refused}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+        tmp.cleanup()
+    row.update(request_ms_median=statistics.median(row["request_ms"]), refused=refused,
+               launches=launches, phase_s=time.perf_counter() - t_phase)
+    emit(row)
+
+
+DP_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_small_step(replay=None):
+    """One staged ``train_step`` of the small kernel-taking model on the card (2 parts of
+    2 prompts x 4 views at 64², 32² rays, the small teachers, the v1 loss: the second
+    branch's sparsity and eikonal terms, the variance not trained) from seed 0 and the
+    generator seeded 42, under whatever process group is up. Returns the parameters, the
+    gradients the update took and the metrics (on the host), the step's host ms, the
+    learning rate, and each part's program-R generator output (denoised latent, space
+    cache). ``replay`` (one such pair a part) replaces program R's generator output, as
+    the whole-step check replays the card's space caches on the CPU: the renderers'
+    marching cubes, sample boundaries and thin faces turn the generator's last bits,
+    which depend on the batch size, into jumps of the gradients."""
+    import torch
+    from triplaneturbo_torch.data.multiview_multiprompt import (
+        DataModuleConfig,
+        MultiviewMultipromptDataModule,
+    )
+    from triplaneturbo_torch.models.background.hashgrid_env_map import (
+        HashgridBackgroundConfig,
+        HyperNetConfig,
+    )
+    from triplaneturbo_torch.models.guidance.asd_guidance import ASDConfig
+    from triplaneturbo_torch.models.renderers.patch_renderer import PatchRendererConfig
+    from triplaneturbo_torch.models.renderers.rasterize_renderer import RasterizeRendererConfig
+    from triplaneturbo_torch.models.renderers.volume_renderer import VolumeRendererConfig
+    from triplaneturbo_torch.systems.trainer import LossConfig, TrainerConfig, TriplaneTurboTrainer
+
+    trainer = TriplaneTurboTrainer.build(
+        TrainerConfig(auto_grad=True, num_parts_training=2, num_steps_training=2,
+                      loss=LossConfig(lambda_sparsity_2nd=0.1, lambda_eikonal_2nd=0.1)),
+        seed=0, device="cuda", space_generator_overrides=SMALL_SG,
+        background_cfg=HashgridBackgroundConfig(
+            hypernet=HyperNetConfig(c_dim=SMALL_SG["cross_attention_dim"])),
+        renderer_cfg=RasterizeRendererConfig(**SMALL_RENDER),
+        volume_cfg=VolumeRendererConfig(**SMALL_VOLUME, trainable_variance=False),
+        patch_cfg=PatchRendererConfig(**SMALL_PATCH), teacher_sizes=SMALL_TEACHERS,
+        teacher_dtype="float32", guidance_cfg=ASDConfig(**SMALL_GUIDANCE))
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for n, p in trainer.geometry.named_parameters():
+            if n.endswith(".up") or ".up." in n:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    hw1, hw2 = SMALL_G_HW
+    r = SMALL_KW["latent_resolution"]
+    dm = MultiviewMultipromptDataModule(DataModuleConfig(
+        batch_size=8, n_view=4, height=hw1, width=hw1, ray_height=hw2, ray_width=hw2,
+        n_steps=2, dim_gaussian=(6, 4, r, r)), seed=0)
+    batch_list = dm.sample_train_batch()
+    gen = torch.Generator().manual_seed(11)
+    text = {k: torch.randn((2, 77, SMALL_TEACHER["cross_attention_dim"]), generator=gen)
+            for k in ("cond_local", "cond_21", "uncond_21", "cond_15", "uncond_15")}
+    text["global_21"] = torch.randn((2, SMALL_SG["cross_attention_dim"]), generator=gen)
+    taken, seen = {}, []
+    step, denoise_decode = trainer.optimizer.step, trainer._denoise_decode
+
+    def record(grads):
+        taken.update({n: g.detach().cpu().clone() for n, g in zip(trainer.trainable, grads)})
+        return step(grads)
+
+    def generator_output(latent, t, text_embeds, noise):
+        out = denoise_decode(latent, t, text_embeds, noise)
+        if torch.is_grad_enabled():  # program B-G differentiates its own forward
+            return out
+        seen.append(tuple(x.detach().cpu() for x in out))
+        if replay is not None:
+            out = tuple(x.to(o.device) for x, o in zip(replay[len(seen) - 1], out))
+        return out
+
+    trainer.optimizer.step = record
+    trainer._denoise_decode = generator_output
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    metrics = trainer.train_step(batch_list, {k: v.cuda() for k, v in text.items()},
+                                 torch.Generator(device="cuda").manual_seed(42))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return {"params": {n: p.detach().cpu().clone() for n, p in trainer.params_train.items()},
+            "grads": taken, "metrics": {k: float(v) for k, v in metrics.items()}, "ms": ms,
+            "lr": trainer.cfg.learning_rate, "generated": seen}
+
+
+def _bit_equal(a, b) -> bool:
+    """Two ``_dp_small_step`` results with the same parameters and gradients, bit for bit."""
+    import torch
+
+    return all(torch.equal(a[k][n], b[k][n]) for k in ("params", "grads") for n in a[k])
+
+
+def _dp_errors(got, ref):
+    """Worst relative errors of ``got`` against ``ref`` (each a ``_dp_small_step``): the
+    metrics; each leaf's gradient, of its largest; each parameter, of its leaf's largest,
+    four learning rates looser where the reference's gradient is under 1e-2 of its
+    leaf's largest (Adan's first step moves an element by the learning rate times the
+    sign of its gradient)."""
+    lr = ref["lr"]
+    metrics = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+                  for k, v in ref["metrics"].items())
+    grads, params = {}, {}
+    for n, g in ref["grads"].items():
+        grads[n] = float((got["grads"][n] - g).abs().max() / g.abs().max().clamp_min(1e-12))
+        loose = g.abs() < 1e-2 * g.abs().max()
+        p = ref["params"][n]
+        diff = (got["params"][n] - p).abs() - 4 * lr * loose
+        params[n] = float(diff.max().clamp_min(0) / p.abs().max().clamp_min(lr))
+    worst_p = max(params, key=params.get)
+    worst_g = sorted(grads, key=grads.get, reverse=True)[:5]
+    return {"metrics": metrics, "grads": grads[worst_g[0]], "params": params[worst_p],
+            "worst_param_leaf": worst_p,
+            "worst_grad_leaves": {n: [grads[n], float(ref["grads"][n].abs().max())]
+                                  for n in worst_g}}
+
+
+def _parallel_worker(rank: int, port: int, out: str) -> int:
+    """One rank of the two-rank gloo run on one card (``chip_smoke.py --parallel-worker
+    RANK PORT OUT``): the small step under the group, and one reduction of its gradients
+    timed; the result saved to ``OUT``."""
+    sys.path.insert(0, str(REPO))
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE="2", LOCAL_RANK="0")
+    import torch
+    import torch.distributed as dist
+    from triplaneturbo_torch.parallel import all_reduce_mean
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo")  # NCCL would refuse two ranks on one card
+    init_s = time.perf_counter() - t
+    res = _dp_small_step()
+    grads = [g.cuda() for g in res["grads"].values()]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    all_reduce_mean(grads)
+    torch.cuda.synchronize()
+    res.update(reduce_ms=(time.perf_counter() - t) * 1e3, init_s=init_s,
+               elements=sum(g.numel() for g in grads))
+    dist.destroy_process_group()
+    torch.save(res, out)
+    return 0
+
+
+def phase_parallel():
+    """Data parallelism (``triplaneturbo_torch/parallel``) on the one card. (a) NCCL at
+    world size 1: the small model's step through the reduced-gradient path against the
+    same step with no process group, bit for bit where two steps with no group agree bit
+    for bit (the card's atomic adds can make them differ in the last bit; then the
+    world-1 step is held within the whole-step tolerances), and a gradient replayed
+    through the reduction, which must come back bit for bit. (b) Two gloo ranks spawned
+    on the card, each holding one prompt of the 2-prompt batch: after the step both hold
+    the same parameters bit for bit, and those equal the one-process step on the whole
+    batch within WHOLE_STEP_TOL (metrics, parameters) and WHOLE_STEP_GRAD_TOL
+    (gradients), that step's program R taking the ranks' generator output (a batch of
+    one prompt runs the UNet and VAE in other orders than a batch of two; the renderers
+    turn those last bits into jumps, as they do the card's against the CPU's). The
+    ranks' generator output itself (latent, space cache) is held against the one-process
+    step's under SMALL_REL_TOL, which a rank with another prompt's latent, noise or text
+    misses by orders of magnitude; the comparison without the replay is reported.
+    A run across several cards waits for a machine with more than one."""
+    t_phase = time.perf_counter()
+    import torch
+    import torch.distributed as dist
+    from triplaneturbo_torch.parallel import all_reduce_mean, init_data_parallel
+
+    reset_counts, read_counts = _count_launches()
+    one = _dp_small_step()
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK="0")
+    try:
+        t = time.perf_counter()
+        init_data_parallel("cuda")
+        nccl_init_s = time.perf_counter() - t
+        reset_counts()
+        world1 = _dp_small_step()
+        launches = read_counts()
+        check(all(v > 0 for v in launches.values()),
+              f"parallel: the world-1 step did not take every kernel: {launches}")
+        replay = {n: g.cuda() for n, g in one["grads"].items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        all_reduce_mean(replay)
+        torch.cuda.synchronize()
+        nccl_reduce_ms = (time.perf_counter() - t) * 1e3
+        check(all(torch.equal(replay[n].cpu(), g) for n, g in one["grads"].items()),
+              "parallel: NCCL's world-1 reduction changed a gradient")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in DP_ENV:
+            os.environ.pop(k, None)
+    row = {"phase": "parallel", "what": "small model, 2 parts x 2 prompts x 4 views at 64², "
+           "staged, the v1 loss", "world1_launches": launches, "nccl_init_s": nccl_init_s,
+           "nccl_reduce_ms": nccl_reduce_ms, "step_ms_no_group": one["ms"],
+           "step_ms_nccl_world1": world1["ms"], "world1_bit_equal": _bit_equal(world1, one)}
+    if not row["world1_bit_equal"]:
+        again = _dp_small_step()
+        row["no_group_run_to_run_bit_equal"] = _bit_equal(again, one)
+        check(not row["no_group_run_to_run_bit_equal"],
+              "parallel: the world-1 step differs from the step with no group, which "
+              "repeats bit for bit")
+        row["world1_rel_err"] = err = _dp_errors(world1, one)
+        check(err["metrics"] <= WHOLE_STEP_TOL and err["params"] <= WHOLE_STEP_TOL
+              and err["grads"] <= WHOLE_STEP_GRAD_TOL, f"parallel: world-1 step {err}")
+
+    tmp = tempfile.TemporaryDirectory()
+    port = _free_port()
+    outs = [str(Path(tmp.name) / f"rank{r}.pt") for r in range(2)]
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--parallel-worker",
+                               str(r), str(port), outs[r]], cwd=str(REPO),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=400)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    gloo_wall_s = time.perf_counter() - t
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"parallel: gloo rank {r} failed:\n{logs[r][-3000:]}")
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    tmp.cleanup()
+    check(all(torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in one["params"]),
+          "parallel: the gloo ranks hold different parameters after the step")
+    # the one-process step on the whole batch, its program R taking the ranks' generator
+    # output (the prompts' halves put back together)
+    whole = _dp_small_step(replay=[tuple(torch.cat(xs) for xs in zip(*parts))
+                                   for parts in zip(*(r["generated"] for r in ranks))])
+    gen_err = max(float((torch.cat(xs) - y).abs().max() / y.abs().max())
+                  for parts, mine in zip(zip(*(r["generated"] for r in ranks)),
+                                         one["generated"])
+                  for xs, y in zip(zip(*parts), mine))
+    err = _dp_errors(ranks[0], whole)
+    row.update(gloo_rel_err=err, generator_output_rel_err=gen_err,
+               gloo_rel_err_without_replay=_dp_errors(ranks[0], one),
+               gloo_step_ms=[r["ms"] for r in ranks],
+               gloo_reduce_ms=[r["reduce_ms"] for r in ranks],
+               gloo_init_s=[r["init_s"] for r in ranks], gloo_wall_s=gloo_wall_s,
+               reduced_elements=ranks[0]["elements"], gloo_ranks_bit_equal=True,
+               several_cards="waits for a machine with more than one card",
+               phase_s=time.perf_counter() - t_phase)
+    check(gen_err <= SMALL_REL_TOL, f"parallel: the ranks' program R output is {gen_err} "
+          f"from the one-process step's (> {SMALL_REL_TOL}): a rank took another prompt's "
+          "latent, noise or text")
+    check(err["metrics"] <= WHOLE_STEP_TOL and err["params"] <= WHOLE_STEP_TOL
+          and err["grads"] <= WHOLE_STEP_GRAD_TOL, f"parallel: two gloo ranks {err}")
+    emit(row)
+
+
 def kernels_line(rows, serving, training):
     """One entry per kernel, with the numbers of its heaviest main-path shape (bf16, the
     joint self-attention; R = 160 for the field grid). ``launches`` is the count from
@@ -2557,6 +3154,9 @@ def main() -> int:
     phase_reference()
     phase_train_reference()
     serving, pipe = phase_pipeline()
+    phase_locon(pipe)
+    phase_eval(pipe)
+    phase_demo(pipe)
     loaded, out = phase_checkpoint(pipe)
     del pipe
     phase_export(loaded, out)
@@ -2567,6 +3167,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_launcher()
     training = phase_training()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_parallel()
     for name, count in {**training, **{k: serving[k] for k in ("flash_attn_fwd", "field_grid")}}.items():
         check(count > 0, f"{name} was launched no time on its main path")
     emit(kernels_line(rows, serving, training))
@@ -2578,6 +3181,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--parallel-worker"]:
+            sys.exit(_parallel_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

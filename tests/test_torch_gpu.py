@@ -725,3 +725,58 @@ def test_program_g_on_the_card_matches_the_cpu(cuda, parallel):
         got = g_c[k].cpu()
         assert torch.isfinite(got).all() and ref.abs().max() > 0, k
         assert (got - ref).abs().max().item() <= 1e-3 * ref.abs().max().item(), k
+
+
+def _mc_mesh(R=48):
+    """A colored marching-cubes mesh of a bumpy sphere (the port's own extractor)."""
+    from triplaneturbo_torch.ops.isosurface import marching_cubes
+    from triplaneturbo_torch.utils.mesh import Mesh
+
+    g = torch.stack(torch.meshgrid(*[torch.linspace(0, 1, R)] * 3, indexing="ij"), -1)
+    sdf = (g - 0.5).norm(dim=-1) - 0.3 - 0.03 * torch.sin(20 * g[..., 0])
+    m = marching_cubes(sdf, None, max_verts=16384, max_faces=32768)
+    v = m.verts * 2 - 1
+    return Mesh(v_pos=v, t_pos_idx=m.faces, v_mask=m.vert_mask, t_mask=m.face_mask,
+                v_rgb=(v * 0.5 + 0.5).clamp(0, 1))
+
+
+def test_eval_views_on_the_card_match_the_cpu(cuda):
+    """``render_mesh_views`` at 128² (4 views) on the card against the CPU route: the
+    same overflow counts and images within 1e-5."""
+    from dataclasses import fields
+
+    from triplaneturbo_torch.evaluation.mesh_render import render_mesh_views
+    from triplaneturbo_torch.utils.mesh import Mesh
+
+    mesh = _mc_mesh()
+    assert int(mesh.t_mask.sum()) > 1000
+    on = Mesh(**{f.name: getattr(mesh, f.name).to("cuda") for f in fields(mesh)})
+    a, b = render_mesh_views(on, height=128, width=128), render_mesh_views(mesh, height=128,
+                                                                           width=128)
+    assert a.images.shape == (4, 128, 128, 3) and a.images.is_cuda
+    assert torch.equal(a.n_span_overflow.cpu(), b.n_span_overflow)
+    assert torch.equal(a.n_list_overflow.cpu(), b.n_list_overflow)
+    assert (b.images < 0.99).float().mean() > 0.05  # the mesh is in the frame
+    assert (a.images.cpu() - b.images).abs().max().item() <= 1e-5
+
+
+def test_hexa_locon_block_on_the_card_matches_the_cpu(cuda):
+    """A ``hexa_v1`` resnet block (per-plane LoCon on both convs and the shortcut, ``up``
+    drawn nonzero) on the card against the CPU, f32 and bf16 backbone."""
+    from triplaneturbo_torch.models.unet_blocks import ResnetBlock2D
+    from triplaneturbo_torch.utils.weights import init_random_
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(12, 32, 16, 16, generator=gen)
+    temb = torch.randn(12, 64, generator=gen)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        block = ResnetBlock2D(32, 48, time_emb_dim=64, locon_type="hexa_v1", locon_rank=4,
+                              dtype=dtype)
+        init_random_(block, torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            for name, p in block.named_parameters():
+                if name.endswith("planes.up.weight"):
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+        ref = block(x.to(dtype), temb.to(dtype)).float()
+        got = block.to("cuda")(x.to("cuda", dtype), temb.to("cuda", dtype)).float().cpu()
+        assert (got - ref).abs().max().item() <= tol * ref.abs().max().item(), dtype

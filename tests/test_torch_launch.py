@@ -6,9 +6,10 @@ split: ``--train`` writes the config snapshot, the metrics and the checkpoints;
 ``--resume`` restores the train state bit for bit, and a run of 2 steps resumed for a
 third takes the steps of an uninterrupted run of 3; ``--validate`` and ``--export``
 write their images and meshes from the trained weights (``system.weights`` or
-``--resume``). Without a card and without ``--device`` it raises,
-as it does with ``WORLD_SIZE`` > 1. ``build_system`` sizes every module from the
-config.
+``--resume``). Without a card and without ``--device`` it raises, as it does with
+``WORLD_SIZE`` > 1 but no process group's environment (two gloo ranks through the
+launcher are ``tests/test_torch_parallel.py``'s). ``build_system`` sizes every module
+from the config.
 """
 
 import glob
@@ -175,8 +176,12 @@ def test_launcher_needs_cuda_unless_told_and_one_process(monkeypatch):
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch.main(["--config", CONFIG, "--train"])
+    # several processes need the process group's environment (torchrun sets it)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A21"):
+    for name in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="RANK, MASTER_ADDR, MASTER_PORT are not set: "
+                                           "start them with torchrun"):
         launch.main(["--config", CONFIG, "--train", "--device", "cpu"])
 
 

@@ -152,6 +152,18 @@ def test_data_module_gives_the_jax_batches(seed):
     assert batch["height"] == 32 and tuple(batch["noise"].shape) == (2, 6, 32, 32, 4)
 
 
+@pytest.mark.parametrize("library", ["objaverse_debug", "None"])
+def test_data_module_refuses_the_supervised_branch(library):
+    """No trainer of either package consumes supervised batches, so a library other than
+    "none" (in any case) is refused."""
+    cfg = tdata.DataModuleConfig(obj_library=library)
+    if library.lower() == "none":
+        assert tdata.MultiviewMultipromptDataModule(cfg).data_schedule == ["unsup"]
+        return
+    with pytest.raises(ValueError, match="no loss path"):
+        tdata.MultiviewMultipromptDataModule(cfg)
+
+
 # -- safe_normalize, chunk_batch, mesh -----------------------------------------
 
 

@@ -10,9 +10,10 @@ light positions, and one Gaussian latent a prompt. Val/test are turntables.
 
 Everything is numpy on the host, and the same seed gives the JAX module's
 batches key for key; :meth:`MultiviewMultipromptDataModule.to_device` turns
-a step-batch into tensors. The supervised Objaverse branch
-(``sample_sup_batch``) is not ported: it reads renders that are not in the
-repository, and the v1 recipe trains unsupervised.
+a step-batch into tensors. The supervised Objaverse branch (``obj_library``,
+``sample_sup_batch``) is refused: neither package has a loss path that consumes
+its batches (the reference's collate raises on supervised data in a multi-step
+run), and the v1 recipe trains unsupervised.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ class DataModuleConfig:
     n_test_views: int = 120
     dim_gaussian: Tuple[int, ...] = (6, 4, 32, 32)  # NCHW order of the reference
     pure_zeros: bool = False
-    obj_library: str = "none"  # the supervised branch; only "none" is ported
+    obj_library: str = "none"  # the supervised branch; only "none" is accepted
 
 
 def load_prompt_library(cfg: DataModuleConfig) -> Dict[str, List[str]]:
@@ -190,7 +191,10 @@ class MultiviewMultipromptDataModule:
     def __init__(self, cfg: Optional[DataModuleConfig] = None, seed: int = 0):
         self.cfg = cfg or DataModuleConfig()
         if self.cfg.obj_library.lower() != "none":
-            raise NotImplementedError("the supervised (Objaverse) branch is not ported")
+            raise ValueError(
+                f"data.obj_library={self.cfg.obj_library!r}: the supervised (Objaverse) "
+                "branch has no loss path in either package (the reference's collate "
+                "raises on supervised data); use obj_library=none")
         self.library = load_prompt_library(self.cfg)
         self.rng = np.random.RandomState(seed)
         self.data_schedule = ["unsup"]

@@ -21,8 +21,19 @@ uninterrupted one would. The trial directory (``<exp_root_dir>/<name>/<tag>@<tim
 gets the parsed and raw configs, the command line and the code.
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and never falls back to the
-CPU. The text-embedding cache lives under the experiment directory. Several GPUs
-(``WORLD_SIZE`` > 1) wait for ROADMAP A21. :func:`main` returns the trainer.
+CPU. The text-embedding cache lives under the experiment directory. :func:`main`
+returns the trainer.
+
+Several processes (``torchrun --nproc_per_node=N -m triplaneturbo_torch.launch ...``,
+``WORLD_SIZE`` > 1) train data-parallel (``parallel/mesh.py``): NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``. Every rank builds the system and the
+data module from the same seed, so all hold the same weights and sample the same
+global batch (``data.batch_size`` prompts x views in all), and ``train_step`` keeps
+each rank's prompts and averages the gradients: the run is the one-process run on
+the whole batch. Rank 0 alone writes the log, the snapshots and the checkpoints, with
+a barrier around each checkpoint; ``--validate``, ``--test`` and ``--export`` split the
+prompts ``[rank::world]``, each rank drawing every prompt's noise so that prompt i
+gets what one process would give it.
 """
 
 from __future__ import annotations
@@ -32,14 +43,6 @@ import os
 import sys
 import time
 from typing import List, Optional
-
-import numpy as np
-
-
-def step_seed(seed: int, step: int) -> int:
-    """The seed of step ``step``'s generator: a function of the run's seed and the step
-    alone, as the JAX launcher's ``fold_in(key, step)``."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -65,9 +68,6 @@ def _log(msg: str) -> None:
 def main(argv: Optional[List[str]] = None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_intermixed_args(argv)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("training on several GPUs (WORLD_SIZE > 1) waits for "
-                                  "ROADMAP A21")
 
     import torch
 
@@ -77,13 +77,25 @@ def main(argv: Optional[List[str]] = None):
     from .utils.callbacks import MetricsLogger, snapshot_code, snapshot_config
     from .utils.checkpoint import load_train_state, save_params, save_train_state
     from .utils.config import load_config, parse_structured
-    from .utils.misc import find_last_path, get_rank, get_world_size
+    from .utils.misc import (barrier, broadcast_host, find_last_path, fold_seed, get_rank,
+                             get_world_size)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
-    cfg = load_config(args.config, cli_args=args.extras, n_devices=get_world_size())
-    seed = (args.seed if args.seed is not None else cfg.get("seed", 0)) + get_rank()
+    own_group = False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not torch.distributed.is_initialized():
+        from .parallel.mesh import init_data_parallel
+
+        _, _, device = init_data_parallel(device.type)
+        own_group = True
+    rank, world = get_rank(), get_world_size()
+    cfg = load_config(args.config, cli_args=args.extras, n_devices=world)
+    if world > 1:  # one trial directory: rank 0's timestamp
+        cfg.update(broadcast_host({k: cfg[k] for k in ("timestamp", "trial_name", "trial_dir")}))
+    # no rank offset: every rank holds the same weights and samples the same global
+    # batch, of which train_step keeps the rank's prompts
+    seed = args.seed if args.seed is not None else cfg.get("seed", 0)
     tcfg = cfg.get("trainer", {})
 
     dm = MultiviewMultipromptDataModule(parse_structured(DataModuleConfig, cfg.get("data", {})),
@@ -94,20 +106,36 @@ def main(argv: Optional[List[str]] = None):
         load_train_state(resume, trainer, data_rng=dm.rng)
         _log(f"resumed from {resume} at step {trainer.global_step}")
     os.makedirs(cfg.trial_dir, exist_ok=True)
-    snapshot_config(cfg.trial_dir, dict(cfg), raw_path=args.config,
-                    cmd=["python3", "-m", "triplaneturbo_torch.launch", *argv])
-    snapshot_code(cfg.trial_dir)
-    mlog = MetricsLogger(cfg.trial_dir)
-    _, embeds_for = build_prompt_setup(
+    mlog = None
+    if rank == 0:
+        snapshot_config(cfg.trial_dir, dict(cfg), raw_path=args.config,
+                        cmd=["python3", "-m", "triplaneturbo_torch.launch", *argv])
+        snapshot_code(cfg.trial_dir)
+        mlog = MetricsLogger(cfg.trial_dir)
+    processor, embeds_for = build_prompt_setup(
         trainer.geometry.cfg.space_generator.cross_attention_dim, seed=seed,
         negative_prompt=cfg.get("data", {}).get("negative_prompt", ""), device=device,
         cache_dir=os.path.join(cfg.exp_dir, "text_embeddings"))
+    if world > 1:
+        # the cache is filled by all ranks together, each encoding a share; encode the
+        # whole library now, so that no rank later waits alone for the others
+        processor.prepare_text_embeddings(
+            list(dict.fromkeys(p for split in dm.library.values() for p in split)))
     save_dir = os.path.join(cfg.trial_dir, "save")
 
-    def validate(prompts, split, step):
+    def mine(prompts, split):
+        """This rank's share ``[rank::world]`` of ``prompts``, with each one's eval
+        batch: every rank draws every prompt's batch from the data module's generator,
+        in order, so that prompt i's noise is what one process draws for it and the
+        generator stays the same on every rank."""
         for i, prompt in enumerate(prompts):
-            views = trainer.render_eval_views(dm.eval_views(prompt, split=split),
-                                              embeds_for([prompt]))
+            batch = dm.eval_views(prompt, split=split)
+            if i % world == rank:
+                yield i, prompt, batch
+
+    def validate(prompts, split, step):
+        for i, prompt, batch in mine(prompts, split):
+            views = trainer.render_eval_views(batch, embeds_for([prompt]))
             trainer.save_eval_artifacts(views, save_dir, f"it{step}-{split}-{i}")
             _log(f"[{i + 1}/{len(prompts)}] rendered {prompt}")
 
@@ -122,30 +150,34 @@ def main(argv: Optional[List[str]] = None):
         for step in range(trainer.global_step, max_steps):
             dm.update_step(step)
             batch_list = dm.sample_train_batch()
-            generator = torch.Generator(device=device).manual_seed(step_seed(seed, step))
+            generator = torch.Generator(device=device).manual_seed(fold_seed(seed, step))
             with maybe_trace(step):
                 metrics = trainer.train_step(batch_list, embeds_for(batch_list[0]["prompt"]),
                                              generator)
-            if step % log_every == 0:
+            if step % log_every == 0 and rank == 0:
                 _log(f"step {step}: loss {float(metrics['loss']):.4f} ({time.time() - t0:.1f}s)")
                 mlog.log(step, metrics)
                 mlog.progress(step, max_steps)
             # validation draws its noise from the data module's generator: checkpoint
             # after it, so that a run resumed here draws what an uninterrupted one would
             if val_every and (step + 1) % val_every == 0:
-                validate(dm.library["val"][get_rank()::get_world_size()], "val", step + 1)
+                validate(dm.library["val"], "val", step + 1)
             if (step + 1) % ckpt_every == 0:
-                ckpt = os.path.join(cfg.trial_dir, f"ckpt_{step + 1:06d}")
-                save_params(os.path.join(ckpt, "geometry.pt"), trainer.geometry)
-                save_train_state(ckpt, trainer, step + 1, data_rng=dm.rng)
-        save_params(os.path.join(cfg.trial_dir, "last", "geometry.pt"), trainer.geometry)
+                barrier("before checkpoint")
+                if rank == 0:
+                    ckpt = os.path.join(cfg.trial_dir, f"ckpt_{step + 1:06d}")
+                    save_params(os.path.join(ckpt, "geometry.pt"), trainer.geometry)
+                    save_train_state(ckpt, trainer, step + 1, data_rng=dm.rng)
+                barrier("after checkpoint")
+        if rank == 0:
+            save_params(os.path.join(cfg.trial_dir, "last", "geometry.pt"), trainer.geometry)
     elif args.validate or args.test:
         split = "val" if args.validate else "test"
         validate(dm.library[split], split, trainer.global_step)
     elif args.export:
         from .models.exporters.mesh_exporter import MeshExporterConfig, MultipromptMeshExporter
 
-        prompts = dm.library["test"][get_rank()::get_world_size()]
+        prompts = dm.library["test"]
         exporter = MultipromptMeshExporter(parse_structured(
             MeshExporterConfig, cfg.get("system", {}).get("exporter", {})))
         export_dir = os.path.join(cfg.trial_dir, f"it{trainer.global_step}-export")
@@ -157,9 +189,9 @@ def main(argv: Optional[List[str]] = None):
             return lambda p: trainer.material_fn(
                 geo.export(p[None].to(device=device, dtype=torch.float32), cache)["features"][0])
 
-        for i, prompt in enumerate(prompts):
+        for i, prompt, batch in mine(prompts, "val"):
             emb = embeds_for([prompt])
-            noise = torch.as_tensor(dm.eval_views(prompt)["noise"]).to(device)
+            noise = torch.as_tensor(batch["noise"]).to(device)
             with torch.no_grad():
                 space_cache = geo.decode(trainer.diffusion_reverse(noise, emb["cond_local"]))
                 meshes = exporter.extract(space_cache, geo.forward_field_grid,
@@ -170,6 +202,9 @@ def main(argv: Optional[List[str]] = None):
                      color_fns=[color_closure(space_cache[j:j + 1])
                                 for j in range(space_cache.shape[0])])
             _log(f"[{i + 1}/{len(prompts)}] exported {prompt}")
+    if own_group:
+        barrier("end")
+        torch.distributed.destroy_process_group()
     return trainer
 
 

@@ -1,10 +1,10 @@
 """DDIM sampling schedule and step.
 
 Counterpart of ``triplaneturbo_tpu/models/schedulers.py``: the schedule, the
-shifted DDIM timesteps, the deterministic DDIM step, and ``add_noise`` for
-training. ``pred_original`` and ``pred_epsilon`` take ᾱ_t itself
-(:func:`alpha_at` reads it for a timestep) where the JAX functions take t.
-The DDPM step waits for the teachers. The β schedule is computed in float64
+shifted DDIM timesteps, the deterministic DDIM step, the ancestral DDPM step,
+``add_noise`` and the v-target ``velocity`` for training. ``pred_original`` and
+``pred_epsilon`` take ᾱ_t itself (:func:`alpha_at` reads it for a timestep)
+where the JAX functions take t. The β schedule is computed in float64
 numpy and then cast to float32, as the JAX package does, so both packages
 hold the same buffers.
 """
@@ -69,6 +69,12 @@ def add_noise(sched: Schedule, original: torch.Tensor, noise: torch.Tensor, t) -
     return torch.sqrt(a) * original + torch.sqrt(1.0 - a) * noise
 
 
+def velocity(sched: Schedule, sample: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+    """The v-parameterization target: sqrt(ᾱ_t) ε − sqrt(1−ᾱ_t) x₀."""
+    a = alpha_at(sched, t, sample.ndim)
+    return torch.sqrt(a) * noise - torch.sqrt(1.0 - a) * sample
+
+
 def pred_original(sched: Schedule, model_output: torch.Tensor, a: torch.Tensor,
                   sample: torch.Tensor) -> torch.Tensor:
     """x̂₀ from the model output; ``a`` is ᾱ_t."""
@@ -125,3 +131,31 @@ def ddim_step(sched: Schedule, model_output: torch.Tensor, t: int, sample: torch
     dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev, min=0.0)) * eps
     prev = torch.sqrt(a_prev) * x0 + dir_xt
     return DDIMStepOutput(prev_sample=prev, pred_original_sample=x0)
+
+
+class DDPMStepOutput(NamedTuple):
+    prev_sample: torch.Tensor
+    pred_original_sample: torch.Tensor
+
+
+def ddpm_step(sched: Schedule, model_output: torch.Tensor, t: int, sample: torch.Tensor,
+              generator: Optional[torch.Generator] = None,
+              noise: Optional[torch.Tensor] = None) -> DDPMStepOutput:
+    """One ancestral DDPM update: the posterior mean of x_{t-1} (DDPM eq. 7), plus
+    sqrt(posterior variance) times ``noise`` (drawn from ``generator`` when only it is
+    given; neither: the mean alone) when t > 0."""
+    t = int(t)
+    a_t = sched.alphas_cumprod[t]
+    a_prev = sched.alphas_cumprod[t - 1] if t > 0 else torch.ones_like(a_t)
+    beta_t = sched.betas[t]
+    x0 = pred_original(sched, model_output, a_t, sample)
+    coef_x0 = torch.sqrt(a_prev) * beta_t / (1.0 - a_t)
+    coef_xt = torch.sqrt(1.0 - beta_t) * (1.0 - a_prev) / (1.0 - a_t)
+    mean = coef_x0 * x0 + coef_xt * sample
+    var = torch.clamp((1.0 - a_prev) / (1.0 - a_t) * beta_t, min=1e-20)
+    if noise is None and generator is not None:
+        noise = torch.randn(sample.shape, generator=generator, device=generator.device,
+                            dtype=sample.dtype).to(sample.device)
+    if noise is not None and t > 0:
+        mean = mean + torch.sqrt(var) * noise
+    return DDPMStepOutput(prev_sample=mean, pred_original_sample=x0)

@@ -67,7 +67,7 @@ class UNet2DConditionModel(nn.Module):
         time_dim = ch0 * 4
         n_blocks = len(cfg.block_out_channels)
         res_kw = dict(time_emb_dim=time_dim, locon_type=cfg.locon_type,
-                      locon_rank=cfg.locon_rank, dtype=dtype)
+                      locon_rank=cfg.locon_rank, n_planes=cfg.adapters.n_planes, dtype=dtype)
 
         def attn(ch: int) -> Transformer2D:
             if cfg.attention_num_heads is not None:
@@ -95,7 +95,8 @@ class UNet2DConditionModel(nn.Module):
                 skip_channels.append(ch)
             if i < n_blocks - 1:
                 self.add_module(f"down_{i}_downsample", Downsample2D(
-                    ch, locon_type=cfg.locon_type, locon_rank=cfg.locon_rank, dtype=dtype))
+                    ch, locon_type=cfg.locon_type, locon_rank=cfg.locon_rank,
+                    n_planes=cfg.adapters.n_planes, dtype=dtype))
                 skip_channels.append(ch)
 
         mid = cfg.block_out_channels[-1]
@@ -113,7 +114,8 @@ class UNet2DConditionModel(nn.Module):
                     self.add_module(f"up_{i}_attn_{j}", attn(ch))
             if i < n_blocks - 1:
                 self.add_module(f"up_{i}_upsample", Upsample2D(
-                    ch, locon_type=cfg.locon_type, locon_rank=cfg.locon_rank, dtype=dtype))
+                    ch, locon_type=cfg.locon_type, locon_rank=cfg.locon_rank,
+                    n_planes=cfg.adapters.n_planes, dtype=dtype))
 
         self.conv_norm_out = nn.GroupNorm(_n_groups(32, ch0), ch0, eps=1e-5, dtype=dtype)
         self.conv_out = AdaptedConv(ch0, cfg.out_channels, dtype=dtype)

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .lora import LoConAdapter
+from .lora import LoConAdapter, PlaneLoConAdapter
 
 
 def _n_groups(groups: int, channels: int) -> int:
@@ -55,13 +55,13 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool 
 class AdaptedConv(nn.Module):
     """Conv with an optional LoCon low-rank delta.
 
-    locon_type: "none" or "vanilla_v1" (shared). The per-plane "hexa_v1"
-    LoCon is not on the inference path and is not ported yet.
+    locon_type: "none", "vanilla_v1" (shared) or "hexa_v1" (per plane: the
+    input's batch is ``n_planes`` planes an item, plane-major).
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3, stride: int = 1,
                  padding: int = 1, use_bias: bool = True, locon_type: str = "none",
-                 locon_rank: int = 16, locon_bias: bool = False,
+                 locon_rank: int = 16, locon_bias: bool = False, n_planes: int = 6,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, features, kernel_size, stride=stride,
@@ -71,12 +71,16 @@ class AdaptedConv(nn.Module):
             self.locon = LoConAdapter(in_channels, features, rank=locon_rank,
                                       kernel_size=kernel_size, stride=stride, padding=padding,
                                       with_bias=locon_bias)
+        elif locon_type == "hexa_v1":
+            self.locon = PlaneLoConAdapter(in_channels, features, n_planes=n_planes,
+                                           rank=locon_rank, kernel_size=kernel_size,
+                                           stride=stride, padding=padding, with_bias=locon_bias)
         elif locon_type not in ("none", None):
-            raise ValueError(f"locon type {locon_type} is not ported")
+            raise ValueError(f"Unknown locon type {locon_type}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv(x)
-        if self.locon_type in ("vanilla_v1", "vanilla"):
+        if self.locon_type in ("vanilla_v1", "vanilla", "hexa_v1"):
             return y + self.locon(x)
         return y
 
@@ -86,9 +90,10 @@ class ResnetBlock2D(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, time_emb_dim: Optional[int] = None,
                  groups: int = 32, eps: float = 1e-5, locon_type: str = "none",
-                 locon_rank: int = 16, dtype: torch.dtype = torch.float32):
+                 locon_rank: int = 16, n_planes: int = 6, dtype: torch.dtype = torch.float32):
         super().__init__()
-        conv_kw = dict(locon_type=locon_type, locon_rank=locon_rank, dtype=dtype)
+        conv_kw = dict(locon_type=locon_type, locon_rank=locon_rank, n_planes=n_planes,
+                       dtype=dtype)
         self.norm1 = nn.GroupNorm(_n_groups(groups, in_channels), in_channels, eps=eps,
                                   dtype=dtype)
         self.conv1 = AdaptedConv(in_channels, out_channels, **conv_kw)
@@ -115,10 +120,10 @@ class Downsample2D(nn.Module):
     """Stride-2 3x3 conv with symmetric (1, 1) padding."""
 
     def __init__(self, channels: int, locon_type: str = "none", locon_rank: int = 16,
-                 dtype: torch.dtype = torch.float32):
+                 n_planes: int = 6, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = AdaptedConv(channels, channels, stride=2, padding=1, locon_type=locon_type,
-                                locon_rank=locon_rank, dtype=dtype)
+                                locon_rank=locon_rank, n_planes=n_planes, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
@@ -128,10 +133,10 @@ class Upsample2D(nn.Module):
     """Nearest 2x upsample (``jax.image.resize(..., "nearest")``), then a 3x3 conv."""
 
     def __init__(self, channels: int, locon_type: str = "none", locon_rank: int = 16,
-                 dtype: torch.dtype = torch.float32):
+                 n_planes: int = 6, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = AdaptedConv(channels, channels, locon_type=locon_type,
-                                locon_rank=locon_rank, dtype=dtype)
+                                locon_rank=locon_rank, n_planes=n_planes, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))

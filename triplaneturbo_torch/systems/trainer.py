@@ -28,13 +28,23 @@ programs of a part must see the same noise and the same volume draws (patch
 origin, sampler jitter; :meth:`TriplaneTurboTrainer.draw_volume`), where the JAX
 package derives both programs' keys from one; program G takes the teachers'
 draws (:meth:`TriplaneTurboTrainer.draw_guidance`).
+
+Under ``torch.distributed`` (``parallel/mesh.py``) every rank runs ``train_step`` on the
+step's whole batch with the same generator: it makes every draw for the whole batch,
+keeps its own prompts' share of the batch, text states and draws, averages the
+gradients across the ranks before the update and reduces the metrics over them, so
+each rank takes the step one process would take on the whole batch. The teachers'
+loss is a sum over prompts (the regularizers are means), so a rank's image gradients
+are scaled by the world size before they are averaged. The two ratio terms over the
+batch (``lambda_z_variance_2nd``, ``lambda_orient_2nd``; the v1 recipe sets neither)
+become the mean of the ranks' ratios.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -73,6 +83,8 @@ from ..models.schedulers import (
     make_schedule,
     pred_original,
 )
+from ..parallel.mesh import all_reduce_mean, all_reduce_sum, shard_batch, shard_rows
+from ..utils.misc import get_rank, get_world_size
 from ..utils.ops import safe_normalize
 from ..utils.schedule import C, schedule_is_zero
 from ..utils.weights import init_random_
@@ -302,6 +314,10 @@ class TriplaneTurboTrainer:
         """The step's metric dict from the per-part fidelity, regularization
         and guidance-gradient-norm series."""
         cfg = self.cfg
+        world = get_world_size()
+        if world > 1:  # the whole batch's: fidelity sums, regularizers average
+            fids, regus = all_reduce_sum(fids), all_reduce_sum(regus) / world
+            gns = torch.sqrt(all_reduce_sum(gns * gns))
         metrics = {
             "loss": (fids.sum() + regus.sum()) / cfg.num_parts_training,
             "fidelity": fids.mean(),
@@ -649,6 +665,21 @@ class TriplaneTurboTrainer:
         return PartDraws(noise, self.draw_volume(batch, generator),
                          self.draw_guidance(batch, generator))
 
+    def _shard_draws(self, d: PartDraws, rank: int, world: int, n_prompts: int) -> PartDraws:
+        """Rank ``rank``'s share of one part's draws of ``n_prompts`` prompts. Stacked
+        renderers (``parallel_guidance``) put program G's draws in two blocks, one a
+        renderer, but for SD's scored view a prompt."""
+        halves = 2 if self.cfg.parallel_guidance else 1
+
+        def guidance(g: GuidanceDraws) -> GuidanceDraws:
+            return replace(g, **{f.name: shard_rows(getattr(g, f.name), rank, world, n_prompts,
+                                                    1 if f.name == "view" else halves)
+                                 for f in fields(g) if getattr(g, f.name) is not None})
+
+        return PartDraws(shard_rows(d.noise, rank, world, n_prompts),
+                         shard_batch(d.volume, rank, world, n_prompts),
+                         {k: [guidance(g) for g in v] for k, v in d.guidance.items()})
+
     def train_step(self, batch_list: Sequence[Dict[str, Any]], text_embeds: Dict[str, Any],
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Sequence[PartDraws]] = None) -> Dict[str, Any]:
@@ -681,6 +712,13 @@ class TriplaneTurboTrainer:
         if len(draws) != n:
             raise ValueError(f"{len(draws)} draws for {n} parts")
         text_embeds = {k: v.to(device) for k, v in text_embeds.items()}
+        rank, world = get_rank(), get_world_size()
+        if world > 1:  # this rank's prompts, taken after every draw of the whole batch
+            n_prompts = latent.shape[0]
+            batches = [shard_batch(b, rank, world, n_prompts) for b in batches]
+            latent = shard_rows(latent, rank, world, n_prompts)
+            text_embeds = shard_batch(text_embeds, rank, world, n_prompts)
+            draws = [self._shard_draws(d, rank, world, n_prompts) for d in draws]
         step = self._train_step_staged if cfg.auto_grad else self._train_step_monolithic
         metrics = step(batches, [int(t) for t in ts], latent, text_embeds, scalars, draws)
         if cfg.skip_nonfinite_grads:
@@ -690,11 +728,12 @@ class TriplaneTurboTrainer:
 
     def _train_step_staged(self, batches, timesteps, latent, text_embeds, scalars, draws):
         """Per part programs R, G, B-R "1st", B-R "2nd" and B-G; the parts'
-        gradients accumulate in place, and one update follows. Each part's images,
-        caches, cotangents and gradients are dropped as soon as they are used, so
-        that the peak is one part's."""
+        gradients accumulate in place, are averaged across the ranks of a process
+        group, and one update follows. Each part's images, caches, cotangents and
+        gradients are dropped as soon as they are used, so that the peak is one part's."""
         acc: Optional[Grads] = None
         fids, regus, gns = [], [], []
+        world = get_world_size()
         for batch, t, d in zip(batches, timesteps, draws):
             latent_in = latent
             latent, space_cache, images, _ = self._stage_render(
@@ -702,6 +741,8 @@ class TriplaneTurboTrainer:
             (fid, gn), grad_images = self._stage_teacher(images, batch, text_embeds, scalars,
                                                          d.guidance)
             del images
+            if world > 1:  # the fidelity sums over prompts: this rank's share of the sum
+                grad_images = {k: g * world for k, g in grad_images.items()}
             grads, g_space_1st, regu = self._stage_student_render(
                 batch, space_cache, text_embeds, scalars, grad_images, branch="1st")
             grads_2nd, g_space_2nd, regu_2nd = self._stage_student_render(
@@ -719,7 +760,7 @@ class TriplaneTurboTrainer:
             fids.append(fid)
             regus.append(regu + regu_2nd)
             gns.append(gn)
-        self._stage_update(acc)
+        self._stage_update(all_reduce_mean(acc))
         return self._step_metrics(torch.stack(fids), torch.stack(regus), torch.stack(gns))
 
     def _part_loss(self, latent, t, batch, text_embeds, scalars, d: PartDraws):
@@ -737,7 +778,8 @@ class TriplaneTurboTrainer:
         """One autograd graph over the parts, each under ``torch.utils.checkpoint``
         (the JAX package's ``jax.checkpoint`` of the scan body: a part keeps only its
         inputs and runs again in the backward), its draws made outside it; one
-        backward of (Σ fid + Σ regu) / num_parts and the update."""
+        backward of (Σ fid + Σ regu) / num_parts, the gradients averaged across the
+        ranks of a process group, and the update."""
         from torch.utils.checkpoint import checkpoint
 
         if self.guidance is None:
@@ -753,11 +795,14 @@ class TriplaneTurboTrainer:
                 regus.append(regu)
                 gns.append(gn)
             fids, regus = torch.stack(fids), torch.stack(regus)
-            total = (fids.sum() + regus.sum()) / self.cfg.num_parts_training
+            world = get_world_size()
+            # the fidelity sums over prompts: this rank's share of the sum
+            fid = fids.sum() * world if world > 1 else fids.sum()
+            total = (fid + regus.sum()) / self.cfg.num_parts_training
             params = list(self.params_train.values())
             grads = torch.autograd.grad(total, params, allow_unused=True)
-        self.optimizer.step([torch.zeros_like(p) if g is None else g
-                             for p, g in zip(params, grads)])
+        self.optimizer.step(all_reduce_mean([torch.zeros_like(p) if g is None else g
+                                             for p, g in zip(params, grads)]))
         return self._step_metrics(fids.detach(), regus.detach(), torch.stack(gns))
 
     # -- validation: turntable renders of a DDIM sample --------------------------

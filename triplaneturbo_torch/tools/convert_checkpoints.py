@@ -3,7 +3,7 @@
     python3 -m triplaneturbo_torch.tools.convert_checkpoints --out DIR \
         [--adapter triplane_turbo_sd_v1.pth] [--sd-base SD21_DIFFUSERS_DIR] \
         [--mvdream sd-v2.1-base-4view.pt] [--richdreamer nd_mv_ema.ckpt] \
-        [--sd-teacher SD21_DIFFUSERS_DIR] [--device cuda|cpu] [--strict]
+        [--sd-teacher SD21_DIFFUSERS_DIR] [--clip CLIP_B32.bin] [--device cuda|cpu] [--strict]
 
 Counterpart of the root ``tools/convert_checkpoints.py``, which writes the JAX
 package's ``.msgpack`` files:
@@ -15,7 +15,11 @@ package's ``.msgpack`` files:
   reads;
 * ``--mvdream``, ``--richdreamer``, ``--sd-teacher``: the teachers (LDM layout with
   EMA shadows, or diffusers) -> ``{mv,rd,sd}_teacher.pt``, which the guidance's
-  ``{kind}_ckpt_path`` and ``load_teacher_params`` read.
+  ``{kind}_ckpt_path`` and ``load_teacher_params`` read;
+* ``--clip``: the evaluation harness's scorer (an HF ``CLIPModel`` ViT-B/32 state
+  dict: both towers and the text projection) -> ``clip_scorer.pt``
+  (``{"vision", "text", "text_projection"}``), which ``CLIPScorer.from_checkpoint``
+  and ``run_eval --clip-ckpt`` read.
 
 Each module is built as ``from_pretrained`` and ``build_teacher`` build it (random
 weights from seed 0, the student in float32, the teachers in bf16, as the JAX tool
@@ -25,8 +29,7 @@ time. Every conversion prints its counts: parameters, loaded, parameters not loa
 (left at their random initialisation), keys the module has no place for (the SD-base
 VAE's encoder, ``quant_conv`` and 3-channel ``conv_out``, which the student's
 decoder lacks) and keys that did not land. ``--strict`` fails on a key that did not
-land and on a parameter not loaded; without it both are warned of. The CLIP scorer
-(``--clip`` in the JAX tool) waits for ROADMAP A21. Reads the checkpoints with
+land and on a parameter not loaded; without it both are warned of. Reads the checkpoints with
 ``torch.load``'s unpickling: convert only checkpoints you trust.
 """
 
@@ -138,6 +141,27 @@ def convert_teacher(kind: str, ckpt: str, out_dir: str, strict: bool,
     return stats
 
 
+def convert_clip(ckpt: str, out_dir: str, strict: bool, device: str = "cuda") -> Dict[str, Any]:
+    """An HF ``CLIPModel`` (ViT-B/32) state dict onto the scorer's random towers (seed
+    0) -> ``out_dir/clip_scorer.pt``; returns the counts."""
+    from ..evaluation.clipscore import CLIPScorer, load_hf_clip
+
+    scorer = CLIPScorer(seed=0, device=device)
+    loaded, mismatched = load_hf_clip(_torch_state_numpy(ckpt), scorer, strict=strict)
+    n_params = sum(len(list(m.parameters())) for m in (scorer.vision, scorer.text))
+    # the towers share parameter names (layers_0.self_attn ...): count them apart
+    stats = {"params": n_params, "loaded": len(loaded), "not_loaded": n_params - len(loaded),
+             "dropped": 0,
+             "mismatched": len(mismatched)}
+    print(f"clip scorer: {json.dumps(stats)}", flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save({"vision": {k: v.cpu() for k, v in scorer.vision.state_dict().items()},
+                "text": {k: v.cpu() for k, v in scorer.text.state_dict().items()},
+                "text_projection": scorer.text_projection.cpu()},
+               os.path.join(out_dir, "clip_scorer.pt"))
+    return stats
+
+
 def write_config(out_dir: str, sd_base: Optional[str] = None) -> str:
     """``config.json``: the pipeline config's default fields, with, when the SD base
     has a ``tokenizer/``, that directory as ``base_model_name_or_path``."""
@@ -161,6 +185,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mvdream", help="sd-v2.1-base-4view.pt")
     ap.add_argument("--richdreamer", help="nd_mv_ema.ckpt")
     ap.add_argument("--sd-teacher", help="diffusers directory of the SD teacher (often --sd-base)")
+    ap.add_argument("--clip", help="HF clip-vit-base-patch32 state dict (pytorch_model.bin)")
     ap.add_argument("--out", default="pretrained_converted")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     ap.add_argument("--strict", action="store_true")
@@ -189,6 +214,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         if path:
             stats[f"{kind}_teacher"] = convert_teacher(kind, path, args.out, args.strict,
                                                        device=args.device)
+    if args.clip:
+        stats["clip_scorer"] = convert_clip(args.clip, args.out, args.strict, device=args.device)
     return stats
 
 

@@ -10,6 +10,8 @@ HWIO -> OIHW, ``scale`` -> ``weight``).
 * :func:`convert_unet`: diffusers ``UNet2DConditionModel`` state dict;
 * :func:`convert_vae`: diffusers ``AutoencoderKL``;
 * :func:`convert_clip_text`: HF ``CLIPTextModel``;
+* :func:`convert_clip_vision`: HF ``CLIPModel`` / ``CLIPVisionModelWithProjection``
+  (the evaluation harness's image tower, with the text projection apart);
 * :func:`convert_adapters`: the TriplaneTurbo adapter checkpoint
   (``triplane_turbo_sd_v1.pth``: hexa-LoRA stacked on the plane axis in the
   routing order [xy_geo, xz_geo, yz_geo, xy_tex, xz_tex, yz_tex], vanilla
@@ -183,6 +185,40 @@ def convert_clip_text(src: Dict[str, Any], n_layers: int = 23) -> Dict[str, np.n
         _linear_pair(src, f"{b}.mlp.fc1", dst, f"{o}/mlp_fc1")
         _linear_pair(src, f"{b}.mlp.fc2", dst, f"{o}/mlp_fc2")
     _norm_pair(src, f"{p}final_layer_norm", dst, "final_layer_norm")
+    return dst
+
+
+def convert_clip_vision(src: Dict[str, Any], n_layers: int = 12) -> Dict[str, np.ndarray]:
+    """HF CLIPModel / CLIPVisionModelWithProjection -> flat params for CLIPVisionEncoder.
+
+    The patch, class and position embeddings, the ViT stack, both layer norms (HF's
+    ``pre_layrnorm`` spelling too) and ``visual_projection``, under an optional
+    ``vision_model.`` prefix; ``text_projection`` comes back under
+    ``__text_projection__`` ([width, projection_dim]), for the scorer's text side."""
+    dst: Dict[str, np.ndarray] = {}
+    p = "vision_model." if any(k.startswith("vision_model.") for k in src) else ""
+    if f"{p}embeddings.patch_embedding.weight" in src:
+        dst["patch_embedding/kernel"] = _conv(
+            np.asarray(src[f"{p}embeddings.patch_embedding.weight"]))
+        dst["class_embedding"] = np.asarray(src[f"{p}embeddings.class_embedding"]).reshape(-1)
+        dst["position_embedding"] = np.asarray(src[f"{p}embeddings.position_embedding.weight"])
+    for hf_name, our_name in ((f"{p}pre_layrnorm", "pre_layernorm"),
+                              (f"{p}pre_layernorm", "pre_layernorm"),
+                              (f"{p}post_layernorm", "post_layernorm")):
+        _norm_pair(src, hf_name, dst, our_name)
+    for i in range(n_layers):
+        b = f"{p}encoder.layers.{i}"
+        o = f"layers_{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear_pair(src, f"{b}.self_attn.{proj}", dst, f"{o}/self_attn/{proj}")
+        _norm_pair(src, f"{b}.layer_norm1", dst, f"{o}/layer_norm1")
+        _norm_pair(src, f"{b}.layer_norm2", dst, f"{o}/layer_norm2")
+        _linear_pair(src, f"{b}.mlp.fc1", dst, f"{o}/mlp_fc1")
+        _linear_pair(src, f"{b}.mlp.fc2", dst, f"{o}/mlp_fc2")
+    if "visual_projection.weight" in src:
+        dst["visual_projection/kernel"] = _linear(np.asarray(src["visual_projection.weight"]))
+    if "text_projection.weight" in src:
+        dst["__text_projection__"] = _linear(np.asarray(src["text_projection.weight"]))
     return dst
 
 

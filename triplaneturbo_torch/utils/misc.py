@@ -1,14 +1,15 @@
 """Small host-side utilities: rank discovery, dtype names, path helpers.
 
 Counterpart of ``triplaneturbo_tpu/utils/misc.py``: rank and world size come
-from ``torch.distributed`` when a process group is up, else 0 and 1.
+from ``torch.distributed`` when a process group is up, else 0 and 1;
+:func:`barrier` and :func:`broadcast_host` do nothing without one.
 """
 
 from __future__ import annotations
 
 import gc
 import os
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
@@ -23,6 +24,34 @@ def get_rank() -> int:
 
 def get_world_size() -> int:
     return torch.distributed.get_world_size() if _distributed() else 1
+
+
+def fold_seed(seed: int, i: int) -> int:
+    """A seed made from (``seed``, ``i``) alone, the JAX package's
+    ``fold_in(PRNGKey(seed), i)``: a step's generator, a prompt's latents."""
+    import numpy as np
+
+    return int(np.random.SeedSequence([seed, i]).generate_state(1)[0])
+
+
+def get_device_count() -> int:
+    """The GPUs this process sees (0 without CUDA)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def barrier(name: str = "barrier") -> None:
+    """Wait until every rank gets here (``name`` is for the reader)."""
+    if _distributed():
+        torch.distributed.barrier()
+
+
+def broadcast_host(x: Any, src: int = 0) -> Any:
+    """Rank ``src``'s value of a picklable host object, on every rank."""
+    if not _distributed():
+        return x
+    box = [x]
+    torch.distributed.broadcast_object_list(box, src)
+    return box[0]
 
 
 _DTYPE_ALIASES = {

@@ -5,7 +5,9 @@ The port's modules carry the flax modules' names (``down_0_res_0``,
 one torch parameter by its last name alone:
 
 * ``kernel`` of a Dense ``[in, out]`` -> Linear ``weight`` transposed;
-* ``kernel`` of a Conv, HWIO -> Conv2d ``weight``, OIHW;
+* ``kernel`` of a Conv, HWIO -> Conv2d ``weight``, OIHW; a plane-stacked one
+  (``PlaneLoConAdapter``, ``[P, kh, kw, I, O]``) -> the grouped Conv2d's
+  ``[P * O, I, kh, kw]``, and its stacked bias ``[P, O]`` -> ``[P * O]``;
 * norm ``scale`` -> ``weight``; ``Embed.embedding`` -> ``weight``;
 * everything else (``bias``, the LoRA ``down`` / ``up``, plane-stacked or
   not, ``position_embedding``) keeps its name and layout.
@@ -27,7 +29,7 @@ import torch
 from torch import nn
 
 from ..models.background.hashgrid_env_map import LinearHyperNetwork
-from ..models.lora import LoConAdapter, LoRAAdapter, PlaneLoRAAdapter
+from ..models.lora import LoConAdapter, LoRAAdapter, PlaneLoConAdapter, PlaneLoRAAdapter
 from ..models.renderers.volume_renderer import GenerativeSpaceSDFVolumeRenderer
 from ..ops.hashgrid import HashGridEncoding
 
@@ -59,8 +61,13 @@ def _torch_leaf(path: str, arr: np.ndarray, contiguous: bool = True):
             arr = arr.T
         elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 5:  # one HWIO kernel a plane -> groups of a grouped conv
+            P, kh, kw, ci, co = arr.shape
+            arr = arr.transpose(0, 4, 3, 1, 2).reshape(P * co, ci, kh, kw)
         else:
             raise ValueError(f"{path}: kernel of rank {arr.ndim}")
+    elif leaf == "bias" and "planes" in mods:
+        arr = arr.reshape(-1)
     return ".".join(mods + [name]), _contiguous(arr) if contiguous else arr
 
 
@@ -80,7 +87,12 @@ def named_to_flax_tree(named: Mapping[str, Any], like: Mapping[str, Any]) -> Dic
         arr = named[name]
         arr = arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
         if path.rsplit("/", 1)[-1] == "kernel":
-            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+            if leaf.ndim == 5:
+                P, kh, kw, ci, co = leaf.shape
+                arr = arr.reshape(P, co, ci, kh, kw).transpose(0, 3, 4, 2, 1)
+            else:
+                arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+        arr = arr.reshape(leaf.shape)
         node = out
         *mods, last = path.split("/")
         for m in mods:
@@ -145,8 +157,9 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator``, after the flax initializers.
 
     Linear / conv kernels N(0, 1/fan_in) (flax's lecun normal, untruncated),
-    biases 0, norms 1 and 0, embeddings N(0, 1), the position embedding
-    N(0, 0.01²); LoRA ``down`` N(0, 1)/rank, LoCon ``down`` kaiming uniform,
+    biases 0, norms 1 and 0, embeddings N(0, 1), the text towers' position
+    embedding N(0, 0.01²), the image tower's class and position embeddings
+    N(0, 0.02²); LoRA ``down`` N(0, 1)/rank, LoCon ``down`` kaiming uniform,
     and every adapter ``up`` 0, so fresh adapters add nothing; the
     hypernetwork's kernels xavier normal, the hash-grid table uniform in
     ±1e-4, the volume renderer's ``variance_inv_std`` its configured start.
@@ -167,12 +180,14 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, (LoRAAdapter, PlaneLoRAAdapter)):
             _normal_(m.down, 1.0 / m.rank, generator)
             m.up.zero_()
-        elif isinstance(m, LoConAdapter):
-            fan_in = m.down.weight[0].numel()
+        elif isinstance(m, (LoConAdapter, PlaneLoConAdapter)):
+            down, up = (m.down, m.up) if isinstance(m, LoConAdapter) else (
+                m.planes["down"], m.planes["up"])
+            fan_in = down.weight[0].numel()  # k * k * C_in, a plane's too
             bound = math.sqrt(6.0 / fan_in)
-            u = torch.rand(m.down.weight.shape, generator=generator, device=m.down.weight.device)
-            m.down.weight.copy_(u * 2 * bound - bound)
-            m.up.weight.zero_()
+            u = torch.rand(down.weight.shape, generator=generator, device=down.weight.device)
+            down.weight.copy_(u * 2 * bound - bound)
+            up.weight.zero_()
             done.update(id(p) for p in m.parameters())
         elif isinstance(m, (nn.Linear, nn.Conv2d)) and id(m.weight) not in done:
             _normal_(m.weight, 1.0 / math.sqrt(m.weight[0].numel()), generator)
@@ -180,6 +195,9 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
             m.weight.fill_(1.0)
         elif isinstance(m, nn.Embedding):
             _normal_(m.weight, 1.0, generator)
+        elif "class_embedding" in own:  # the CLIP image tower: flax's normal(0.02)
+            _normal_(own["class_embedding"], 0.02, generator)
+            _normal_(own["position_embedding"], 0.02, generator)
         elif "position_embedding" in own:
             _normal_(own["position_embedding"], 0.01, generator)
         for name, p in own.items():
