@@ -87,7 +87,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                ``__call__`` with every launch count reset just before and read just
                after, an exported OBJ, then one more ``__call__`` prompt under
                ``torch.profiler``: device-busy ms of each stage (the pipeline's
-               ``record_function`` ranges), the idle share and the heaviest kernels.
+               ``record_function`` ranges), the idle share and the heaviest kernels;
+               then one more prompt under ``utils/flops.py`` ``count_flops`` (its FLOPs
+               by stage, operator and kernel, for the ``flops`` line below).
 7. locon    -- the per-plane LoCon (``locon_type="hexa_v1"``): the small kernel-taking
                student with every plane's ``up`` drawn nonzero, card against CPU
                (latents, space cache; SMALL_REL_TOL); then the full-width student with
@@ -106,7 +108,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                requests over ``http.client``, each answered with a PNG strip of four 256²
                views and an OBJ with faces, the median request ms; ``/file`` refuses a
                sibling of its root and a path outside it.
-10. checkpoint -- the reference's checkpoints in, at full width in bf16:
+10. msgpack -- the JAX package's own flax msgpack files out of the port and back, at full
+               width: the seed-0 bf16 pipeline written by the port's codec
+               (``utils/msgpack_io.py``) as ``geometry.msgpack`` and ``text_encoder.msgpack``
+               in the JAX layout and read back by ``from_pretrained(dir)`` (every parameter
+               and a prompt with fixed latents bit-equal to the source's), a full MVDream
+               teacher through ``mv_teacher.msgpack`` and the ViT-B/32 scorer through
+               ``clip_scorer.msgpack`` (bit-equal); file sizes, write and read seconds, and
+               whether ``import msgpack`` works on the machine (the port never imports it).
+11. checkpoint -- the reference's checkpoints in, at full width in bf16:
                ``tools/reference_layout.py`` writes the seed-0 pipeline as an SD-2.1-base
                diffusers directory (``unet``, ``vae``, ``text_encoder``) and
                ``triplane_turbo_sd_v1.pth``, and a full MVDream teacher as an LDM ``.pt``
@@ -117,7 +127,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                their sources, one prompt with fixed latents equal to the source
                pipeline's (latents, space cache, mesh); seconds of writing, converting,
                loading and the first prompt.
-11. export  -- the loaded pipeline's full-width mesh in every format: ``export_obj``
+12. export  -- the loaded pipeline's full-width mesh in every format: ``export_obj``
                (the native C++ writer), ``export_obj(save_normal=True)`` (the Python
                writer) and the mesh exporter's ``obj-mtl`` (a 1024² texture baked from
                the texture field on the card): counts equal to the masks' sums, the
@@ -126,13 +136,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                faces); the card's bake against the CPU route's: the UV atlas equal,
                bit-equal textures with a pointwise ramp (the same winning faces and
                texels), within 1e-3 with the field closure.
-12. launcher -- ``python3 -m triplaneturbo_torch.launch`` through ``launch.main`` on the
+13. launcher -- ``python3 -m triplaneturbo_torch.launch`` through ``launch.main`` on the
                card, ``configs/smoke_tiny.yaml`` widened to the small kernel-taking model:
                ``--train`` for 2 steps (every kernel launched), ``--resume`` from its
                step-2 checkpoint for one more (the restored trainable partition, Adan
                state and step bit-equal to the saved ones), ``--validate`` (4 views: the
                grid PNG and the turntable) and ``--export`` (a non-empty OBJ a prompt).
-13. training -- the v1 recipe at full width through the port's launcher: ``launch.main``
+14. training -- the v1 recipe at full width through the port's launcher: ``launch.main``
                with ``configs/triplaneturbo_v1.yaml`` as written (gradient checkpointing
                on) but for the log, checkpoint and validation intervals and
                ``field_chunk``, for three steps of ``train_step``: two prompts x four
@@ -159,8 +169,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
                proposal pass, the field with normals (program R's form), the whole
                ``render_2nd`` and ``render_backward_2nd``, with the ray and sample
                counts, and ``render_backward_2nd``'s time and peak memory at each
-               ``field_chunk`` of a sweep.
-14. parallel -- data parallelism (``triplaneturbo_torch/parallel``) on the one card: NCCL
+               ``field_chunk`` of a sweep. Last, one more v1 step through
+               ``TriplaneTurboTrainer.step_cost_flops`` (its FLOPs by program, and its
+               launch counts, asserted).
+15. flops   -- the FLOP count of what the port executes (``utils/flops.py``: every
+               matrix product the plain PyTorch route runs, each DDIM step, part and
+               checkpoint recompute; the hand-written kernels counted as their plain
+               versions): the full-width prompt's, by stage, with TFLOP/s and its share of
+               the dense bf16 peak (989 TFLOP/s) over the prompt's host median and over
+               its device-busy ms, by stage over the stages' device-busy ms; the v1
+               step's, by program, over the timed steps' median and over a part's
+               device-busy ms times the parts; the kernels' share of each; and the small
+               model's prompt and whole staged and monolithic ``train_step`` (phases 4
+               and 5, counted there), whose counts on the card must equal the CPU's as
+               integers.
+16. parallel -- data parallelism (``triplaneturbo_torch/parallel``) on the one card: NCCL
                at world size 1, the small model's staged step (2 prompts x 4 views, the v1
                loss; every kernel launched) through the reduced-gradient path against the
                same step with no process group, bit for bit where two steps with no group
@@ -776,6 +799,9 @@ SMALL_KW = dict(latent_resolution=16, isosurface_resolution=64)
 # online softmax, cuDNN's convolution algorithms) and the DDIM step divides x0 by
 # sqrt(alpha_bar) = 0.07 at t = 999, which amplifies those last-digit differences.
 SMALL_REL_TOL = 1e-3
+# the small model's FLOP counts on the card and on the CPU (a prompt in phase_reference,
+# the staged and monolithic train_step in phase_train_reference), for the flops line
+SMALL_FLOPS = {}
 # the small model's whole train_step, card against CPU: the metrics, and every trainable
 # leaf after the update, of its largest value
 WHOLE_STEP_TOL = 1e-4
@@ -794,6 +820,7 @@ def phase_reference():
     from triplaneturbo_torch.pipelines.triplaneturbo_text_to_3d import (
         TriplaneTurboTextTo3DPipeline,
     )
+    from triplaneturbo_torch.utils.flops import count_flops
 
     pipes = {dev: TriplaneTurboTextTo3DPipeline.from_pretrained(
         None, device=dev, seed=0, space_generator_overrides=SMALL_SG,
@@ -803,7 +830,10 @@ def phase_reference():
     r = SMALL_KW["latent_resolution"]
     latents = torch.randn((1, 6, r, r, 4), generator=torch.Generator().manual_seed(1))
     k1, k2 = fa.LAUNCHES, fg.LAUNCHES
-    outs = {dev: p("a photo of a hamburger", latents=latents) for dev, p in pipes.items()}
+    outs = {}
+    for dev, p in pipes.items():  # counted on both routes for the flops line
+        outs[dev], SMALL_FLOPS[f"prompt_{dev}"] = count_flops(p, "a photo of a hamburger",
+                                                              latents=latents)
     torch.cuda.synchronize()
     check(fa.LAUNCHES > k1 and fg.LAUNCHES == k2 + 1,
           "the small model on the card did not go through both kernels")
@@ -956,7 +986,8 @@ def phase_pipeline():
           "meshes": counts, "obj": obj, "max_memory_allocated_bytes": peak_bytes})
     # every kernel of the prompt, the hand-written ones too, falls in a stage's range
     check(stage_share >= 0.95, f"the stage ranges hold only {stage_share:.3f} of the device time")
-    return launches, pipe
+    return launches, pipe, {"prompt_ms_median": median_ms, "prompt_device_busy_ms": prompt_busy_ms,
+                            "stage_device_busy_ms": stage_busy_ms}
 
 
 CKPT_PROMPT = "a delicious hamburger"
@@ -1038,9 +1069,7 @@ def phase_checkpoint(src):
                                ("text_encoder", pipe.text_encoder, src.text_encoder),
                                ("mv_unet", mv.unet, source_mv.unet),
                                ("mv_vae", mv.vae, source_mv.vae)):
-        a, b = mine.state_dict(), theirs.state_dict()
-        check(set(a) == set(b), f"{name}: state dict keys differ")
-        unequal += [f"{name}.{k}" for k in b if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+        unequal += _state_unequal(name, mine, theirs)
     check(not unequal, f"loaded state differs from its source: {unequal[:5]} ({len(unequal)})")
     n_params = {"pipeline": sum(p.numel() for m in (pipe.geometry, pipe.text_encoder)
                                 for p in m.parameters()),
@@ -1066,6 +1095,182 @@ def phase_checkpoint(src):
           "converted_bytes": files, "params": n_params, "conversion": stats,
           "seconds": seconds, "prompt_max_abs_diff": diffs})
     return pipe, loaded_out
+
+
+def _state_unequal(name, mine, theirs):
+    """The state-dict entries of ``mine`` that differ from ``theirs`` in dtype or bits."""
+    import torch
+
+    a, b = mine.state_dict(), theirs.state_dict()
+    check(set(a) == set(b), f"{name}: state dict keys differ")
+    return [f"{name}.{k}" for k in b if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+
+
+def phase_msgpack(src):
+    """The JAX package's flax msgpack files out of the port and back, at full width
+    (``utils/msgpack_io.py``; the CPU tests hold the bytes against flax's): the seed-0
+    bf16 pipeline ``src`` as ``geometry.msgpack`` and ``text_encoder.msgpack`` (the JAX
+    layout, ``{"params": tree}``) read back by ``from_pretrained(dir)``, every parameter
+    bit-equal and a prompt with fixed latents equal to the source's; a full MVDream
+    teacher through ``mv_teacher.msgpack`` and the ViT-B/32 scorer through
+    ``clip_scorer.msgpack``, bit-equal. File sizes, write and read seconds, and whether
+    ``import msgpack`` works here (for information: the port writes its own codec)."""
+    import torch
+    from triplaneturbo_torch.evaluation.clipscore import CLIPScorer, save_scorer
+    from triplaneturbo_torch.pipelines.triplaneturbo_text_to_3d import (
+        TriplaneTurboTextTo3DPipeline,
+    )
+    from triplaneturbo_torch.systems.builder import build_teacher
+    from triplaneturbo_torch.utils.checkpoint import load_msgpack, save_params, save_teacher
+
+    try:
+        import msgpack  # noqa: F401
+
+        msgpack_here = True
+    except ImportError:
+        msgpack_here = False
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    seconds, unequal = {}, []
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    def write_pipeline():
+        save_params(str(d / "pipe" / "geometry.msgpack"), src.geometry)
+        save_params(str(d / "pipe" / "text_encoder.msgpack"), src.text_encoder)
+
+    timed("write_pipeline", write_pipeline)
+    head = load_msgpack(str(d / "pipe" / "text_encoder.msgpack"))
+    check(set(head) == {"params"} and "final_layer_norm" in head["params"],
+          "text_encoder.msgpack is not the JAX layout")
+    del head
+    pipe = timed("read_pipeline", lambda: TriplaneTurboTextTo3DPipeline.from_pretrained(
+        str(d / "pipe"), device="cuda", seed=123, dtype_str="bfloat16"))
+    unequal += _state_unequal("geometry", pipe.geometry, src.geometry)
+    unequal += _state_unequal("text_encoder", pipe.text_encoder, src.text_encoder)
+    lat = torch.randn((1, 6, 32, 32, 4), generator=torch.Generator(device="cuda").manual_seed(8),
+                      device="cuda")
+    diffs = _mesh_diffs(pipe(CKPT_PROMPT, latents=lat), src(CKPT_PROMPT, latents=lat))
+    check(all(v == 0.0 for v in diffs.values()), f"msgpack: the loaded pipeline differs: {diffs}")
+    del pipe
+
+    source_mv = build_teacher("mv", torch.Generator(device="cuda").manual_seed(1), {},
+                              "bfloat16", "cuda")
+    path = timed("write_mv_teacher", lambda: save_teacher(str(d / "mv_teacher.msgpack"),
+                                                           source_mv.unet, source_mv.vae))
+    mv = timed("read_mv_teacher", lambda: build_teacher(
+        "mv", torch.Generator(device="cuda").manual_seed(2), {}, "bfloat16", "cuda",
+        ckpt_path=path))
+    unequal += _state_unequal("mv_unet", mv.unet, source_mv.unet)
+    unequal += _state_unequal("mv_vae", mv.vae, source_mv.vae)
+    n_mv = sum(p.numel() for m in (mv.unet, mv.vae) for p in m.parameters())
+    del mv, source_mv
+
+    scorer = CLIPScorer(seed=0, device="cuda")
+    path = timed("write_clip_scorer", lambda: save_scorer(str(d / "clip_scorer.msgpack"),
+                                                           scorer))
+    back = timed("read_clip_scorer", lambda: CLIPScorer.from_checkpoint(path, seed=1,
+                                                                         device="cuda"))
+    unequal += _state_unequal("clip_vision", back.vision, scorer.vision)
+    unequal += _state_unequal("clip_text", back.text, scorer.text)
+    if not torch.equal(back.text_projection, scorer.text_projection):
+        unequal.append("clip text_projection")
+    check(not unequal, f"msgpack: loaded state differs from its source: {unequal[:5]} "
+          f"({len(unequal)})")
+    files = {str(f.relative_to(d)): f.stat().st_size for f in sorted(d.rglob("*.msgpack"))}
+    tmp.cleanup()
+    emit({"phase": "msgpack", "what": "the seed-0 bf16 pipeline (student + OpenCLIP-H text "
+          "tower), a seed-1 bf16 MVDream teacher and the seed-0 ViT-B/32 scorer through the "
+          "port's flax msgpack writer and readers, the JAX package's file names and layout",
+          "bytes": files, "seconds": seconds, "phase_s": time.perf_counter() - t_phase,
+          "prompt_max_abs_diff": diffs,
+          "mv_teacher_params": n_mv, "bit_equal": True,
+          "import_msgpack_works_here": msgpack_here})
+
+
+def phase_flops_prompt(pipe):
+    """The FLOPs of one full-width prompt through ``__call__`` (``utils/flops.py``
+    ``count_flops``): by stage (the pipeline's ``record_function`` ranges), by operator
+    and by kernel, with the prompt's launches."""
+    import torch
+    from triplaneturbo_torch.utils.flops import count_flops
+
+    reset_counts, read_counts = _count_launches()
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    _, count = count_flops(pipe, "a delicious hamburger", generator=gen)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches["flash_attn_fwd"] == K1_LAUNCHES_PER_PROMPT
+          and launches["field_grid"] == K2_LAUNCHES_PER_PROMPT,
+          f"flops: the counted prompt's launches {launches}")
+    check(count.total > 0 and sum(count.by_range.values()) == count.total
+          and set(count.by_range) <= set(STAGES),
+          f"flops: the prompt's count {count.total} by range {count.by_range}")
+    return {"count": count, "counted_prompt_ms": (time.perf_counter() - t) * 1e3,
+            "launches": launches}
+
+
+def _rate(flops: float, ms: float) -> dict:
+    """TFLOP/s over ``ms`` and its share of the card's dense bf16 peak."""
+    per_s = flops / (ms * 1e-3) if ms > 0 else 0.0
+    return {"tflops_per_s": per_s / 1e12, "mfu": per_s / PEAK_FLOPS["bfloat16"]}
+
+
+def flops_line(prompt, timing, step):
+    """The ``flops`` line: a full-width prompt's and a v1 step's FLOPs (what the plain
+    PyTorch route executes, the hand-written kernels counted as their plain versions),
+    their rates and shares of the bf16 peak over host and device time, by stage; and the
+    small model's counts on the card against the CPU, which must be equal."""
+    c = prompt["count"]
+    busy = timing["stage_device_busy_ms"]
+    serving = {
+        "flops": c.total, "by_stage": c.by_range,
+        "over_host_median": {"ms": timing["prompt_ms_median"],
+                             **_rate(c.total, timing["prompt_ms_median"])},
+        "over_device_busy": {"ms": timing["prompt_device_busy_ms"],
+                             **_rate(c.total, timing["prompt_device_busy_ms"])},
+        "by_stage_over_device_busy": {k: {"ms": busy.get(k, 0.0), **_rate(v, busy.get(k, 0.0))}
+                                      for k, v in c.by_range.items()},
+        "by_op": c.by_op, "by_kernel": c.by_kernel, "kernel_share": c.kernel_share(),
+        "counted_prompt_ms": prompt["counted_prompt_ms"], "launches": prompt["launches"]}
+    s = step["count"]
+    part_busy = step["part_device_busy_ms"] * step["parts"]
+    training = {
+        "flops": s.total, "by_program": s.by_range,
+        "over_step_median": {"ms": step["step_ms_median"],
+                             **_rate(s.total, step["step_ms_median"])},
+        "over_device_busy": {"ms": part_busy, "what": "one profiled part's device-busy ms "
+                             "times the parts of a step", **_rate(s.total, part_busy)},
+        "by_op": s.by_op, "by_kernel": s.by_kernel, "kernel_share": s.kernel_share(),
+        "counted_step_ms": step["counted_step_ms"], "launches": step["launches"]}
+    small = {}
+    for what in ("prompt", "step_staged", "step_monolithic"):
+        card, cpu = SMALL_FLOPS[f"{what}_cuda"], SMALL_FLOPS[f"{what}_cpu"]
+        small[what] = {"cuda": card.total, "cpu": cpu.total, "equal": card.total == cpu.total,
+                       "cuda_kernel_share": card.kernel_share(),
+                       "cuda_by_kernel": card.by_kernel}
+        check(card.total == cpu.total and card.by_range == cpu.by_range,
+              f"flops: the small model's {what} counts {card.total} on the card and "
+              f"{cpu.total} on the CPU ({card.by_range} against {cpu.by_range})")
+        check(card.by_kernel and not cpu.by_kernel, f"flops: {what}'s kernel rows "
+              f"{card.by_kernel} on the card, {cpu.by_kernel} on the CPU")
+    return {"phase": "flops", "peak_flops": PEAK_FLOPS["bfloat16"],
+            "counting": "torch.utils.flop_counter over the matrix products each call "
+            "executes (elementwise work not counted); every DDIM step, checkpoint "
+            "recompute and part counted; the hand-written kernels as their plain versions",
+            "not_bf16": "the text tower runs in f32 and the field grid in f32 (its kernel's "
+            "products as split TF32); both are held against the bf16 peak all the same",
+            "serving": serving, "training": training, "small_model_card_vs_cpu": small}
 
 
 def _png_pixels(path):
@@ -1558,6 +1763,7 @@ def _small_train_step():
         TrainerConfig,
         TriplaneTurboTrainer,
     )
+    from triplaneturbo_torch.utils.flops import count_flops
 
     reset_counts, read_counts = _count_launches()
     parts = 2
@@ -1612,12 +1818,16 @@ def _small_train_step():
         m_cuda, m_cpu = [None], [None]
         reset_counts()
 
-        def on_card():
-            m_cuda[0] = dst.train_step(batch_list, {k: v.cuda() for k, v in text.items()},
-                                       draws=card_draws)
+        name = "staged" if auto_grad else "monolithic"
+
+        def on_card():  # each step counted for the flops line
+            m_cuda[0], SMALL_FLOPS[f"step_{name}_cuda"] = count_flops(
+                dst.train_step, batch_list, {k: v.cuda() for k, v in text.items()},
+                draws=card_draws)
 
         def on_cpu():
-            m_cpu[0] = src.train_step(batch_list, text, draws=draws)
+            m_cpu[0], SMALL_FLOPS[f"step_{name}_cpu"] = count_flops(
+                src.train_step, batch_list, text, draws=draws)
 
         _, _, sampler = _volume_against_cpu(on_card, on_cpu, step=True)
         launches = read_counts()
@@ -1646,7 +1856,6 @@ def _small_train_step():
                    loss=[float(m_cuda[0]["loss"]), float(m_cpu[0]["loss"])])
         for k in ("grads", "params"):  # the five worst leaves of each
             row[k] = dict(sorted(row[k].items(), key=lambda kv: -kv[1])[:5])
-        name = "staged" if auto_grad else "monolithic"
         rows[name] = row
         check(worst["metrics"] <= WHOLE_STEP_TOL and worst["params"] <= WHOLE_STEP_TOL
               and worst["grads"] <= WHOLE_STEP_GRAD_TOL,
@@ -2273,10 +2482,24 @@ def phase_training():
     phase_guidance(trainer, batch, images, text, scalars, gen)
     phase_rasterize(trainer, batch, space_cache)
     phase_volume(trainer, batch, space_cache, text, scalars, gen, grad_images)
-    del trainer, seen, images, grad_images, space_cache
+    del images, grad_images, space_cache
+    # the FLOPs of a v1 step (a fourth step, taken under the count), against the timed
+    # steps' median for the flops line
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    count = trainer.step_cost_flops(batch_list, text,
+                                    torch.Generator(device="cuda").manual_seed(4))
+    torch.cuda.synchronize()
+    step_flops = {"count": count, "counted_step_ms": (time.perf_counter() - t) * 1e3,
+                  "step_ms_median": median_step, "part_device_busy_ms": busy_ms,
+                  "parts": n, "stage_device_busy_ms": stage_busy_ms, "launches": read_counts()}
+    check(step_flops["launches"] == expected, f"the counted step's launches "
+          f"{step_flops['launches']}, expected {expected}")
+    del trainer, seen
     tmp.cleanup()
     torch.cuda.empty_cache()
-    return totals
+    return totals, step_flops
 
 
 def _named_params(trainer):
@@ -3153,10 +3376,12 @@ def main() -> int:
     rows = phase_kernels()
     phase_reference()
     phase_train_reference()
-    serving, pipe = phase_pipeline()
+    serving, pipe, prompt_timing = phase_pipeline()
+    prompt_flops = phase_flops_prompt(pipe)
     phase_locon(pipe)
     phase_eval(pipe)
     phase_demo(pipe)
+    phase_msgpack(pipe)
     loaded, out = phase_checkpoint(pipe)
     del pipe
     phase_export(loaded, out)
@@ -3166,7 +3391,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_launcher()
-    training = phase_training()
+    training, step_flops = phase_training()
+    emit(flops_line(prompt_flops, prompt_timing, step_flops))
     gc.collect()
     torch.cuda.empty_cache()
     phase_parallel()

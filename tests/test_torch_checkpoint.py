@@ -11,7 +11,8 @@ SD-2.1-base diffusers directory plus the adapter through
 loads, whose fixed latents give the JAX pipeline's mesh; a diffusers teacher
 directory; LDM ``.ckpt`` / ``.pt`` files whose EMA shadows win; a bare UNet dict;
 the port's own ``{kind}_teacher.pt``; ``build_system`` with ``system.weights=*.pth``
-and ``*_ckpt_path``; the JAX package's msgpack files, which raise naming A20b.
+and ``*_ckpt_path``; missing and truncated flax msgpack files, which raise (the files
+themselves are ``tests/test_torch_msgpack.py``'s).
 """
 
 import os
@@ -346,13 +347,17 @@ def test_build_system_reads_weights_pth_and_teacher_ckpt_paths(files, tmp_path):
 
 
 def test_msgpack_files_raise_naming_a20b(tmp_path):
+    """Since A20b the msgpack files load (``tests/test_torch_msgpack.py``): a missing
+    one raises ``FileNotFoundError``, a truncated one ``ValueError``, and a pipeline
+    path must be a directory or an adapter ``.pth``. (The name is that of the A20b
+    refusal this test held before these files loaded.)"""
     for call in (lambda: C.check_weights_format("geometry.msgpack"),
                  lambda: C.load_teacher_params("mv_teacher.msgpack", None),
                  lambda: C.maybe_load_pipeline_params("params.msgpack", None, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A20b"):
+        with pytest.raises(FileNotFoundError):
             call()
     (tmp_path / "geometry.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP A20b"):
+    with pytest.raises(ValueError, match="truncated"):
         C.maybe_load_pipeline_params(str(tmp_path), None, None)
     with pytest.raises(FileNotFoundError):
         C.check_weights_format(str(tmp_path / "missing.pth"))

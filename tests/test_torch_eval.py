@@ -247,8 +247,15 @@ def test_clip_scorer_checkpoint_round_trip_and_msgpack(tmp_path):
                                   src.image_features(img).numpy())
     np.testing.assert_array_equal(dst.text_features(["a cat"]).numpy(),
                                   src.text_features(["a cat"]).numpy())
-    with pytest.raises(NotImplementedError, match="A20b"):
-        CLIPScorer.from_checkpoint(str(tmp_path / "clip_scorer.msgpack"), device="cpu")
+    # the JAX package's format through the same entry point (A20b), and a missing file
+    from triplaneturbo_torch.evaluation.clipscore import save_scorer
+
+    msg = save_scorer(str(tmp_path / "clip_scorer.msgpack"), src)
+    dst = _small_scorer_class(vcfg, tcfg).from_checkpoint(msg, seed=0, device="cpu")
+    np.testing.assert_array_equal(dst.image_features(img).numpy(),
+                                  src.image_features(img).numpy())
+    with pytest.raises(FileNotFoundError):
+        CLIPScorer.from_checkpoint(str(tmp_path / "missing.msgpack"), device="cpu")
     assert clip_b32_text_config().width == 512
 
 

@@ -746,11 +746,11 @@ def test_eval_views_on_the_card_match_the_cpu(cuda):
     from dataclasses import fields
 
     from triplaneturbo_torch.evaluation.mesh_render import render_mesh_views
-    from triplaneturbo_torch.utils.mesh import Mesh
 
     mesh = _mc_mesh()
     assert int(mesh.t_mask.sum()) > 1000
-    on = Mesh(**{f.name: getattr(mesh, f.name).to("cuda") for f in fields(mesh)})
+    on = mesh.with_(**{f.name: getattr(mesh, f.name).to("cuda") for f in fields(mesh)
+                       if getattr(mesh, f.name) is not None})
     a, b = render_mesh_views(on, height=128, width=128), render_mesh_views(mesh, height=128,
                                                                            width=128)
     assert a.images.shape == (4, 128, 128, 3) and a.images.is_cuda

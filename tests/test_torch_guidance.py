@@ -14,6 +14,8 @@ output within 1e-4 of its own largest value (sums run in other orders in XLA and
 PyTorch, and the "dmd" weighting divides by sqrt(alpha_bar), 0.07 at t = 999).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -369,8 +371,20 @@ def test_build_teacher_is_frozen_bf16_and_refuses_a_checkpoint():
         for n, p in m.named_parameters():
             assert p.dtype == torch.bfloat16 and not p.requires_grad, n
     assert mv.unet.cfg.camera_dim == 16 and rd.unet.cfg.cross_attention_dim == 32
-    # the JAX package's own msgpack teachers (ROADMAP A20b) and a missing file
-    with pytest.raises(NotImplementedError, match="A20b"):
+    # a teacher's own msgpack file (the JAX package's format, A20b) loads back bit-equal
+    import tempfile
+
+    from triplaneturbo_torch.utils.checkpoint import save_teacher
+
+    with tempfile.TemporaryDirectory() as d:
+        path = save_teacher(os.path.join(d, "mv_teacher.msgpack"), mv.unet, mv.vae)
+        back = build_teacher("mv", torch.Generator().manual_seed(1), SIZES["mv"], "bfloat16",
+                             "cpu", ckpt_path=path)
+    for a, b in ((back.unet, mv.unet), (back.vae, mv.vae)):
+        for (n, p), q in zip(a.named_parameters(), b.parameters()):
+            assert torch.equal(p, q), n
+    # a missing file
+    with pytest.raises(FileNotFoundError):
         build_teacher("sd", gen, SIZES["sd"], "bfloat16", "cpu", ckpt_path="sd_teacher.msgpack")
     with pytest.raises(FileNotFoundError):
         build_teacher("sd", gen, SIZES["sd"], "bfloat16", "cpu", ckpt_path="sd.ckpt")

@@ -335,7 +335,7 @@ def test_port_imports_nothing_of_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'triplaneturbo_tpu', 'yaml', 'imageio'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'triplaneturbo_tpu', 'yaml', 'imageio', 'msgpack'))\n"
         "assert not bad, bad\n"
         "for name in ('systems.trainer', 'systems.optimizers', 'utils.schedule', 'utils.weights',\n"
         "             'ops.flash_attention', 'ops.field_grid', 'pipelines.triplaneturbo_text_to_3d',\n"
@@ -349,7 +349,8 @@ def test_port_imports_nothing_of_jax():
         "             'launch', 'utils.config', 'utils.misc', 'utils.checkpoint',\n"
         "             'utils.callbacks', 'utils.profiling', 'utils.saving',\n"
         "             'models.exporters.mesh_exporter', 'utils.convert_torch', 'utils.native',\n"
-        "             'utils.uv_export', 'tools.convert_checkpoints', 'tools.reference_layout'):\n"
+        "             'utils.uv_export', 'tools.convert_checkpoints', 'tools.reference_layout',\n"
+        "             'utils.msgpack_io', 'utils.flops'):\n"
         "    assert 'triplaneturbo_torch.' + name in sys.modules, name\n"
         "print(len([n for n in sys.modules if n.startswith('triplaneturbo_torch')]))\n"
     )

@@ -12,6 +12,7 @@ feature is nearest its own text among the prompt gallery. The towers are ViT-B/3
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, List, Optional, Union
 
 import numpy as np
@@ -66,17 +67,42 @@ class CLIPScorer:
         self.device = device
 
     @classmethod
+    def from_msgpack(cls, path: str, seed: int = 0,
+                     device: Union[str, torch.device] = "cuda") -> "CLIPScorer":
+        """A scorer from a ``clip_scorer.msgpack`` (``{"vision", "text",
+        "text_projection"}``, the towers as flax trees), what the JAX package's
+        ``tools/convert_checkpoints.py --clip`` writes and the port's with ``--format
+        msgpack`` (:func:`save_scorer`). Like the JAX reader and the HF route, it raises on a parameter the
+        file leaves random."""
+        from ..utils.checkpoint import load_flax_tree, load_msgpack
+
+        tree = load_msgpack(path)
+        if not (isinstance(tree, dict) and {"vision", "text", "text_projection"} <= set(tree)):
+            raise ValueError(f"{path}: a scorer msgpack holds vision, text and text_projection")
+        scorer = cls(seed=seed, device=device)
+        load_flax_tree(tree["vision"], scorer.vision, "clip vision")
+        load_flax_tree(tree["text"], scorer.text, "clip text")
+        proj = tree["text_projection"]
+        proj = proj.float() if isinstance(proj, torch.Tensor) else torch.from_numpy(
+            np.array(proj, dtype=np.float32))
+        if tuple(proj.shape) != tuple(scorer.text_projection.shape):
+            raise ValueError(f"{path}: text_projection {tuple(proj.shape)}, the scorer's "
+                             f"{tuple(scorer.text_projection.shape)}")
+        scorer.text_projection = proj.to(scorer.device)
+        return scorer
+
+    @classmethod
     def from_checkpoint(cls, path: str, seed: int = 0,
                         device: Union[str, torch.device] = "cuda") -> "CLIPScorer":
-        """A scorer from ``path``: the ``clip_scorer.pt`` that
+        """A scorer from ``path``, by its extension: a ``.msgpack``
+        (:meth:`from_msgpack`), the ``clip_scorer.pt`` that
         ``tools/convert_checkpoints.py --clip`` writes (``{"vision", "text",
-        "text_projection"}``), or an HF ``CLIPModel`` (ViT-B/32) state dict, converted
-        here. The JAX package's ``clip_scorer.msgpack`` raises naming ROADMAP A20b.
-        Unpickles ``path``."""
-        from ..utils.checkpoint import _a20b, _state_numpy, _torch_load
+        "text_projection"}``, :func:`save_scorer`), or an HF ``CLIPModel`` (ViT-B/32) state dict, converted
+        here. Unpickles a torch ``path``."""
+        from ..utils.checkpoint import _state_numpy, _torch_load
 
         if str(path).endswith(".msgpack"):
-            _a20b(path)
+            return cls.from_msgpack(path, seed=seed, device=device)
         scorer = cls(seed=seed, device=device)
         ckpt = _torch_load(path)
         if isinstance(ckpt, dict) and {"vision", "text", "text_projection"} <= set(ckpt):
@@ -116,6 +142,23 @@ class CLIPScorer:
         sim = gallery @ tfeat.T  # image x text
         hits = torch.argmax(sim, dim=1) == torch.arange(len(prompts), device=sim.device)
         return {"clip_score": float(np.mean(sims)), "recall_at_1": float(hits.float().mean())}
+
+
+def save_scorer(path: str, scorer: CLIPScorer) -> str:
+    """A scorer's ``{"vision", "text", "text_projection"}`` into ``path``, as
+    :meth:`CLIPScorer.from_checkpoint` reads it: state dicts in a ``.pt``, flax trees in
+    a ``.msgpack``."""
+    from ..utils.checkpoint import flax_params, save_msgpack
+
+    if str(path).endswith(".msgpack"):
+        return save_msgpack(path, {"vision": flax_params(scorer.vision),
+                                   "text": flax_params(scorer.text),
+                                   "text_projection": scorer.text_projection})
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({"vision": {k: v.cpu() for k, v in scorer.vision.state_dict().items()},
+                "text": {k: v.cpu() for k, v in scorer.text.state_dict().items()},
+                "text_projection": scorer.text_projection.cpu()}, path)
+    return path
 
 
 def load_hf_clip(sd: Dict[str, np.ndarray], scorer: CLIPScorer, strict: bool = True):

@@ -10,10 +10,10 @@ logs every ``trainer.log_every_n_steps`` steps into ``metrics.jsonl``, writes
 ``trainer.checkpoint_every`` steps and renders the validation prompts every
 ``trainer.val_check_interval`` steps (0: never); ``--resume`` restores a train
 state (a checkpoint directory, ``LAST`` allowed) in every mode, and
-``system.weights=<geometry.pt or adapter .pth>`` the geometry; ``--validate`` and
-``--test`` render the turntables of the val or test prompts; ``--export`` writes a
-test prompt's mesh in ``system.exporter.fmt`` (``obj``, or ``obj-mtl`` with the
-texture baked from the field on the card).
+``system.weights=<geometry.pt, geometry.msgpack or adapter .pth>`` the geometry;
+``--validate`` and ``--test`` render the turntables of the val or test prompts;
+``--export`` writes a test prompt's mesh in ``system.exporter.fmt`` (``obj``, or
+``obj-mtl`` with the texture baked from the field on the card).
 A step's noise and draws come from a generator seeded with the seed and the step
 (the JAX launcher's ``fold_in(key, step)``), and a checkpoint holds the host
 generators of the batches and timesteps, so a resumed run takes the steps an

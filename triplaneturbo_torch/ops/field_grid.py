@@ -17,6 +17,11 @@ path calls it. When a CUDA input requires grad the call goes through a
 kernel: :func:`field_grid_slab_backward` recomputes the unfused expression on
 x-slabs of the grid, which bounds the ``[R³, 128]`` temporaries of a whole-grid
 recompute to one slab's.
+
+For ``utils/flops.py`` the card route counts what the plain route runs: the forward
+(``_prep``'s einsums and the kernel) as :func:`field_grid_flops`, the products of
+``field_grid_reference``, and the slab backward as autograd through it, the slabs'
+recompute of the forward left out (the plain route keeps its forward's activations).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import flops as _flops
 from . import _build
 
 # Kernel launches since the count was last reset (the wrapper adds one per launch).
@@ -92,33 +98,47 @@ def field_grid_reference(m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d,
                            radius, bias_r, concat, world)
 
 
+def field_grid_flops(m_zy: torch.Tensor, *weights: torch.Tensor) -> int:
+    """The FLOPs of :func:`field_grid_reference`'s products: each of the six ``[in,
+    out]`` MLP weights applied at every one of the R³ grid points."""
+    n = m_zy.shape[0] ** 3
+    return sum(_flops.matmul_flops(n, w.shape[0], w.shape[1]) for w in weights)
+
+
 def field_grid_slab_backward(inputs, g_sdf: torch.Tensor, g_def: torch.Tensor,
-                             radius: float, bias_r: float, concat: bool):
+                             radius: float, bias_r: float, concat: bool, needs=None):
     """Gradients of :func:`field_grid_reference` wrt its nine tensor inputs.
 
     ``inputs`` are (m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d); ``g_sdf``
-    ``[R, R, R]`` and ``g_def`` ``[3, R, R, R]`` the cotangents. The unfused
-    expression is recomputed and differentiated one x-slab at a time: the
+    ``[R, R, R]`` and ``g_def`` ``[3, R, R, R]`` the cotangents; ``needs`` says
+    which inputs need a gradient (all when not given; the others get None). The
+    unfused expression is recomputed and differentiated one x-slab at a time: the
     weight and ``m_zy`` gradients are summed over slabs, the ``m_xy`` / ``m_xz``
     gradients of a slab land in its own columns.
     """
     m_xy, m_xz = inputs[0], inputs[1]
+    needs = tuple(needs) if needs is not None else (True,) * 9
     R = m_xy.shape[0]
     n_slabs = BWD_SLABS if R % BWD_SLABS == 0 else 1
     S = R // n_slabs
     world = _world(R, radius, m_xy.device, m_xy.dtype)
-    grads = [torch.zeros_like(m_xy), torch.zeros_like(m_xz)] + [None] * 7
+    grads = [torch.zeros_like(m_xy) if needs[0] else None,
+             torch.zeros_like(m_xz) if needs[1] else None] + [None] * 7
+    wanted = [i for i in range(9) if needs[i]]
     for s in range(n_slabs):
         sl = slice(s * S, (s + 1) * S)
         leaves = [m_xy[:, sl], m_xz[:, sl], *inputs[2:]]
-        leaves = [t.detach().requires_grad_(True) for t in leaves]
-        with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need) for t, need in zip(leaves, needs)]
+        with torch.enable_grad(), _flops.counted_as(None):  # the plain route keeps these
             out = _reference_slab(*leaves, radius, bias_r, concat, world[sl])
-        d = torch.autograd.grad(out, leaves, (g_sdf[sl], g_def[:, sl]))
-        grads[0][:, sl] = d[0]
-        grads[1][:, sl] = d[1]
+        d = dict(zip(wanted, torch.autograd.grad(out, [leaves[i] for i in wanted],
+                                                 (g_sdf[sl], g_def[:, sl]))))
+        for i in (0, 1):
+            if i in d:
+                grads[i][:, sl] = d[i]
         for i in range(2, 9):
-            grads[i] = d[i] if grads[i] is None else grads[i] + d[i]
+            if i in d:
+                grads[i] = d[i] if grads[i] is None else grads[i] + d[i]
     return tuple(grads)
 
 
@@ -228,17 +248,24 @@ class _FusedFieldGrid(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, radius, bias_r, concat, *inputs):
-        m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d = inputs
         ctx.save_for_backward(*inputs)
         ctx.consts = (radius, bias_r, concat)
-        prepped = _prep(m_xy, m_xz, m_zy, w1s, w1d, w2s, w2d, w3s, w3d, concat)
-        return _launch(*prepped, radius, bias_r)
+        return _prep_and_launch(inputs, radius, bias_r, concat)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_sdf, g_def):
-        grads = field_grid_slab_backward(ctx.saved_tensors, g_sdf, g_def, *ctx.consts)
+        grads = field_grid_slab_backward(ctx.saved_tensors, g_sdf, g_def, *ctx.consts,
+                                         needs=ctx.needs_input_grad[3:])
         return (None, None, None, *grads)
+
+
+def _prep_and_launch(inputs, radius: float, bias_r: float, concat: bool):
+    """``_prep`` and the kernel, counted as ``field_grid_reference``'s products."""
+    m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d = inputs
+    with _flops.counted_as("field_grid", field_grid_flops(m_zy, *inputs[3:])):
+        prepped = _prep(m_xy, m_xz, m_zy, w1s, w1d, w2s, w2d, w3s, w3d, concat)
+        return _launch(*prepped, radius, bias_r)
 
 
 def fused_field_grid(m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d,
@@ -256,5 +283,4 @@ def fused_field_grid(m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d,
         raise ValueError(f"fused_field_grid runs on cuda or cpu, got {m_xy.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return _FusedFieldGrid.apply(float(radius), float(bias_r), bool(concat), *inputs)
-    prepped = _prep(m_xy, m_xz, m_zy, w1s, w1d, w2s, w2d, w3s, w3d, concat)
-    return _launch(*prepped, radius, bias_r)
+    return _prep_and_launch(inputs, radius, bias_r, concat)

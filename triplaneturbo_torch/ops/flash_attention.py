@@ -21,7 +21,12 @@ held against the JAX package on the CPU; nothing on the main path calls them.
 On a CPU tensor ``flash_attention`` computes the plain version and autograd
 differentiates it. On a CUDA tensor it launches the kernels or raises: the
 plain forward without grad, and a ``torch.autograd.Function`` (forward with
-stats, both backward kernels) when an input requires grad.
+stats, both backward kernels) when an input requires grad. Each launch reports to
+``utils/flops.py`` what the plain version counts at its shapes (the kernels' own
+recompute of the scores in the backward does not count): 4·BH·L·Lk·D a forward, with
+or without stats, and for the backward what autograd through
+``flash_attention_reference`` runs for the inputs that need a gradient, 8·BH·L·Lk·D
+when all three do (dP and dq reported by the dq kernel, dk and dv by dk/dv).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import flops as _flops
 from . import _build
 
 # Kernel launches since each count was last reset (a wrapper adds one per launch).
@@ -235,6 +241,12 @@ def _call(source: str, name: str, pointers, ints, device) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
+def _products(q: torch.Tensor, k: torch.Tensor) -> int:
+    """The FLOPs of one of attention's two products, 2·BH·L·Lk·D."""
+    BH, L, D = q.shape
+    return _flops.attention_flops(BH, L, k.shape[1], D)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_stats: bool = False):
     global LAUNCHES, LAUNCHES_STATS
     _check(q, k, v)
@@ -245,12 +257,14 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_stats: boo
         _call("flash_attn_fwd", "flash_attn_fwd",
               (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()), ints, q.device)
         LAUNCHES += 1
+        _flops.report("flash_attn_fwd", 2 * _products(q, k))
         return out
     lse = torch.empty((BH, L), device=q.device, dtype=torch.float32)
     _call("flash_attn_fwd", "flash_attn_fwd_stats",
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr()), ints,
           q.device)
     LAUNCHES_STATS += 1
+    _flops.report("flash_attn_fwd_stats", 2 * _products(q, k))
     return out, lse
 
 
@@ -271,22 +285,34 @@ def _bwd_args(q, k, v, g, lse, delta):
     return pointers, (BH, L, k.shape[1], D, _DTYPES[q.dtype])
 
 
-def _launch_dq(q, k, v, g, lse, delta) -> torch.Tensor:
+def _backward_products(needs: Tuple[bool, bool, bool]) -> Tuple[int, int]:
+    """How many of attention's products autograd through the plain version runs in the
+    backward, given which of (q, k, v) need a gradient: (dP = g·vᵀ when q or k does,
+    plus dq; dk plus dv), the dq kernel's and the dk/dv kernel's shares."""
+    nq, nk, nv = needs
+    return int(nq or nk) + int(nq), int(nk) + int(nv)
+
+
+def _launch_dq(q, k, v, g, lse, delta, products: int = 2) -> torch.Tensor:
+    """The dq kernel; it reports ``products`` of attention's products (dP and dq)."""
     global LAUNCHES_BWD_DQ
     pointers, ints = _bwd_args(q, k, v, g, lse, delta)
     dq = torch.empty_like(q)
     _call("flash_attn_bwd", "flash_attn_bwd_dq", pointers + (dq.data_ptr(),), ints, q.device)
     LAUNCHES_BWD_DQ += 1
+    _flops.report("flash_attn_bwd_dq", products * _products(q, k))
     return dq
 
 
-def _launch_dkdv(q, k, v, g, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch_dkdv(q, k, v, g, lse, delta, products: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel; it reports ``products`` of attention's products (dk and dv)."""
     global LAUNCHES_BWD_DKDV
     pointers, ints = _bwd_args(q, k, v, g, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call("flash_attn_bwd", "flash_attn_bwd_dkdv", pointers + (dk.data_ptr(), dv.data_ptr()),
           ints, q.device)
     LAUNCHES_BWD_DKDV += 1
+    _flops.report("flash_attn_bwd_dkdv", products * _products(q, k))
     return dk, dv
 
 
@@ -311,7 +337,9 @@ class _FlashAttention(torch.autograd.Function):
         # the cotangent usually arrives through a transpose: the kernels take it contiguous
         g = g.contiguous()
         delta = flash_delta(out, g)
-        return (_launch_dq(q, k, v, g, lse, delta), *_launch_dkdv(q, k, v, g, lse, delta))
+        n_dq, n_dkdv = _backward_products(ctx.needs_input_grad)
+        return (_launch_dq(q, k, v, g, lse, delta, n_dq),
+                *_launch_dkdv(q, k, v, g, lse, delta, n_dkdv))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

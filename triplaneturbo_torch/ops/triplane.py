@@ -1,9 +1,10 @@
 """Triplane feature fetch: plane rotation, projection and bilinear sampling.
 
-Counterpart of ``triplaneturbo_tpu/ops/triplane.py`` (the triplane part; the
-quaplane, h-plane and voxel samplers are not ported yet). Space caches are
-channels-last ``[B, P, H, W, C]``; within a group of three planes index 0 is
-the XY plane, 1 the XZ plane, 2 the ZY plane.
+Counterpart of ``triplaneturbo_tpu/ops/triplane.py``: the triplane sampler the
+model uses, the gather-free grid path of the field grid, and the reference's
+experimental samplers, which no shipped config uses (quaplanes, h-planes and the
+voxel grid). Space caches are channels-last ``[B, P, H, W, C]``; within a group of
+three planes index 0 is the XY plane, 1 the XZ plane, 2 the ZY plane.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .grid_sample import grid_sample_2d_packed, pack_2x2
+from .grid_sample import grid_sample_2d_packed, grid_sample_3d, pack_2x2
 
 
 def rotate_planes(space_cache: torch.Tensor, mode: Optional[str] = "v1") -> torch.Tensor:
@@ -66,6 +67,93 @@ def sample_from_planes(plane_features: torch.Tensor, coordinates: torch.Tensor,
     if interpolate_feat == "v2":
         return feats.transpose(1, 2).reshape(N, M, 3 * C)
     raise ValueError(f"Unknown interpolate_feat {interpolate_feat}")
+
+
+def _sample_planes(plane_features: torch.Tensor, projs) -> torch.Tensor:
+    """Each plane of ``plane_features`` [N, P, H, W, C] sampled at its own 2-D
+    coordinates (``projs``, P tensors [N, M, 2]): [N, P, M, C]."""
+    N, P, H, W, C = plane_features.shape
+    M = projs[0].shape[1]
+    proj = torch.stack(projs, dim=1)  # [N, P, M, 2]
+    return grid_sample_2d_packed(pack_2x2(plane_features.reshape(N * P, H, W, C)),
+                                 proj.reshape(N * P, M, 2)).reshape(N, P, M, C)
+
+
+def sample_from_quaplanes(plane_features: torch.Tensor, coordinates: torch.Tensor,
+                          interpolate_feat: Optional[str] = "v1",
+                          box_warp: float = 2.0) -> torch.Tensor:
+    """Quaplanes: xy, xz and a front and a back zy plane, [N, 4, H, W, C], at
+    ``coordinates`` [N, M, 3] -> [N, M, 3C] (xy | xz | zy). The two zy planes are
+    blended by x: None (or "none") takes the front plane where x > 0 and the back one
+    elsewhere, "v1" weighs the front by 0.5 + 0.5 x."""
+    if plane_features.shape[1] != 4:
+        raise ValueError(f"expected 4 planes, got {plane_features.shape[1]}")
+    c = (2.0 / box_warp) * coordinates
+    x, y, z = c[..., 0], c[..., 1], c[..., 2]
+    zy_proj = torch.stack([z, y], -1)
+    feats = _sample_planes(plane_features, [torch.stack([x, y], -1), torch.stack([x, z], -1),
+                                            zy_proj, zy_proj])
+    xy, xz, zy_front, zy_back = feats.unbind(1)
+    if interpolate_feat in (None, "none"):
+        zy = torch.where((x > 0)[..., None], zy_front, zy_back)
+    elif interpolate_feat == "v1":
+        a_front = (0.5 + 0.5 * x)[..., None]
+        zy = a_front * zy_front + (1.0 - a_front) * zy_back
+    else:
+        raise ValueError(f"Unknown quaplane interpolate_feat {interpolate_feat}")
+    return torch.cat([xy, xz, zy], dim=-1)
+
+
+def sample_from_hplanes(plane_features: torch.Tensor, coordinates: torch.Tensor,
+                        interpolate_feat: Optional[str] = "v1",
+                        box_warp: float = 2.0) -> torch.Tensor:
+    """H-planes: a side (xz) plane and a front and a back zy plane, [N, 3, H, W, C], at
+    ``coordinates`` [N, M, 3]. The variants weigh the front and back planes by x:
+    None / "none" (hard select by x > 0) and "v1" (0.5 ± 0.5 x) -> [N, M, 2C]; "v2"
+    (the side by 1 - |y| as well) and "v3" (trapezoids with thresholds ±0.5) -> 3C;
+    "v4" (v3's weights) and "v5" (v1's) summed over the planes -> C; "v6" (a sigmoid of
+    each plane's last channel) and "v7" (v6 plus v5's linear weights) summed -> C - 1."""
+    if plane_features.shape[1] != 3:
+        raise ValueError(f"expected 3 planes, got {plane_features.shape[1]}")
+    c = (2.0 / box_warp) * coordinates
+    x, y, z = c[..., 0], c[..., 1], c[..., 2]
+    zy_proj = torch.stack([z, y], -1)
+    feats = _sample_planes(plane_features, [torch.stack([x, z], -1), zy_proj, zy_proj])
+    side, front, back = feats.unbind(1)
+    xe = x[..., None]
+    if interpolate_feat in (None, "none"):
+        return torch.cat([side, torch.where(xe > 0, front, back)], dim=-1)
+    if interpolate_feat == "v1":
+        a = 0.5 + 0.5 * xe
+        return torch.cat([side, a * front + (1.0 - a) * back], dim=-1)
+    if interpolate_feat == "v2":
+        a_side = 1.0 - torch.abs(y)[..., None]
+        return torch.cat([side * a_side, front * (0.5 + 0.5 * xe), back * (0.5 - 0.5 * xe)],
+                         dim=-1)
+
+    def trapezoid(thres):
+        return torch.where(xe > thres, 1.0 - (xe - thres) / (1.0 - thres),
+                           (xe + 1.0) / (thres + 1.0))
+
+    if interpolate_feat == "v3":
+        return torch.cat([side, front * trapezoid(0.5), back * trapezoid(-0.5)], dim=-1)
+    if interpolate_feat == "v4":
+        return side + front * trapezoid(0.5) + back * trapezoid(-0.5)
+    if interpolate_feat == "v5":
+        return side + front * (0.5 + 0.5 * xe) + back * (0.5 - 0.5 * xe)
+    if interpolate_feat in ("v6", "v7"):
+        alpha = torch.sigmoid(feats[..., -1:])  # [N, 3, M, 1]
+        if interpolate_feat == "v7":
+            alpha = alpha + torch.stack([torch.zeros_like(xe), 0.5 + 0.5 * xe,
+                                         0.5 - 0.5 * xe], dim=1)
+        return (feats[..., :-1] * alpha).sum(dim=1)
+    raise ValueError(f"Hplane interpolate_feat {interpolate_feat} not implemented")
+
+
+def get_trilinear_feature(points: torch.Tensor, voxel: torch.Tensor) -> torch.Tensor:
+    """Trilinear fetch from a dense voxel grid: points [N, M, 3] in [-1, 1], voxel
+    [N, D, H, W, C] -> [N, M, C]."""
+    return grid_sample_3d(voxel, points)
 
 
 def bilinear_interp_matrix(out_coords: torch.Tensor, in_size: int) -> torch.Tensor:

@@ -8,9 +8,11 @@ runs eagerly, so the JAX ``scan`` is a Python loop and each batch item is
 extracted in turn. Only the OBJ write touches the host.
 
 ``from_pretrained(path)`` reads ``path/config.json`` and loads the weights of a
-directory that ``tools/convert_checkpoints.py`` wrote (``geometry.pt``,
-``text_encoder.pt``), or of the reference's adapter ``.pth`` over random
-backbone weights; without a path the weights are random, made from ``seed``.
+directory that either package's ``tools/convert_checkpoints.py`` wrote (``geometry``
+and ``text_encoder``, each a ``.pt`` of the port's or a flax ``.msgpack``; the JAX
+docstring's ``params.msgpack`` is no file its reader reads), or of the reference's
+adapter ``.pth`` over random backbone weights; without a path the weights are
+random, made from ``seed``.
 The entry point runs on the GPU unless the caller passes ``device="cpu"``.
 """
 
@@ -96,9 +98,9 @@ class TriplaneTurboTextTo3DPipeline:
                         **kwargs) -> "TriplaneTurboTextTo3DPipeline":
         """Build the pipeline on ``device`` with random weights from ``seed``, then load
         ``pretrained_model_name_or_path`` when given: a directory (its ``config.json``
-        sets the config under ``kwargs``; its ``geometry.pt`` and ``text_encoder.pt``
-        the weights) or the reference's adapter ``.pth`` (``utils/checkpoint.py``
-        ``maybe_load_pipeline_params``).
+        sets the config under ``kwargs``; its ``geometry`` and ``text_encoder`` files,
+        ``.pt`` or ``.msgpack``, the weights) or the reference's adapter ``.pth``
+        (``utils/checkpoint.py`` ``maybe_load_pipeline_params``).
 
         The modules are built on the meta device and materialised directly on
         ``device``, so the full-size model never passes through host memory.

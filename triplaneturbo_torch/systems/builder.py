@@ -87,7 +87,8 @@ def build_system(cfg: Dict[str, Any], seed: int = 0,
                  device: Union[str, torch.device] = "cuda"):
     """The training system a config describes (see ``configs/triplaneturbo_v1.yaml``),
     on ``device`` with random weights from ``seed``; ``system.weights`` then loads the
-    geometry from a ``geometry.pt`` of the port's or the reference's adapter ``.pth``,
+    geometry from a ``geometry.pt``, a ``geometry.msgpack`` (either package's) or the
+    reference's adapter ``.pth``,
     and the guidance's ``{mv,rd,sd}_ckpt_path`` keys load the teachers (any layout of
     ``load_teacher_params``); the ``*_model_name_or_path`` keys are dropped, as in the
     JAX builder."""

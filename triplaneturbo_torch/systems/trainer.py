@@ -17,7 +17,8 @@ per branch (B-R "1st" mesh, "2nd" volume) and ONE generator backward (B-G,
 the gradients accumulate in place and ``_stage_update`` applies them. Without it
 the step is one autograd graph over the parts (``_train_step_monolithic``), each
 part under ``torch.utils.checkpoint``. Validation renders a DDIM sample's
-turntable with the mesh renderer (``render_eval_views``).
+turntable with the mesh renderer (``render_eval_views``). :meth:`step_cost_flops`
+takes a step under ``utils/flops.py``'s count and returns its FLOPs.
 
 PyTorch runs eagerly, so a "program" is a method; gradients travel as
 dictionaries keyed by parameter name, the counterpart of the JAX trainable
@@ -84,6 +85,7 @@ from ..models.schedulers import (
     pred_original,
 )
 from ..parallel.mesh import all_reduce_mean, all_reduce_sum, shard_batch, shard_rows
+from ..utils.flops import FlopCount, count_flops
 from ..utils.misc import get_rank, get_world_size
 from ..utils.ops import safe_normalize
 from ..utils.schedule import C, schedule_is_zero
@@ -725,6 +727,21 @@ class TriplaneTurboTrainer:
             metrics["skipped_nonfinite"] = self.optimizer.total_notfinite
         self.global_step += 1
         return metrics
+
+    def step_cost_flops(self, batch_list: Sequence[Dict[str, Any]], text_embeds: Dict[str, Any],
+                        generator: Optional[torch.Generator] = None) -> FlopCount:
+        """The FLOPs of one optimization step: ``train_step`` with these arguments, run
+        once under ``utils/flops.py`` ``count_flops`` (every product the step executes,
+        its parts, recomputes and update included; the hand-written kernels counted as
+        their plain versions). The counterpart of the JAX trainer's ``step_cost_flops``,
+        which sums XLA's ``cost_analysis`` over the programs a step dispatches, and like
+        it this takes a real step: the trainer is advanced by it (its parameters,
+        optimizer state, ``global_step`` and timestep generator). Staged or monolithic
+        as ``auto_grad`` says; under data parallelism the count is this rank's. Returns
+        the :class:`FlopCount` (``total``; ``by_range`` splits it by the trainer's
+        ``record_function`` programs)."""
+        _, count = count_flops(self.train_step, batch_list, text_embeds, generator)
+        return count
 
     def _train_step_staged(self, batches, timesteps, latent, text_embeds, scalars, draws):
         """Per part programs R, G, B-R "1st", B-R "2nd" and B-G; the parts'

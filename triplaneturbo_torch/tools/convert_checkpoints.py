@@ -3,10 +3,17 @@
     python3 -m triplaneturbo_torch.tools.convert_checkpoints --out DIR \
         [--adapter triplane_turbo_sd_v1.pth] [--sd-base SD21_DIFFUSERS_DIR] \
         [--mvdream sd-v2.1-base-4view.pt] [--richdreamer nd_mv_ema.ckpt] \
-        [--sd-teacher SD21_DIFFUSERS_DIR] [--clip CLIP_B32.bin] [--device cuda|cpu] [--strict]
+        [--sd-teacher SD21_DIFFUSERS_DIR] [--clip CLIP_B32.bin] [--device cuda|cpu] \
+        [--format pt|msgpack] [--strict]
 
 Counterpart of the root ``tools/convert_checkpoints.py``, which writes the JAX
-package's ``.msgpack`` files:
+package's ``.msgpack`` files. ``--format pt`` (the default) writes the port's files
+below; ``--format msgpack`` writes the JAX tool's names and layout instead
+(``geometry.msgpack`` and ``text_encoder.msgpack`` of ``{"params": tree}``,
+``{kind}_teacher.msgpack`` of ``{"unet", "vae"}``, ``clip_scorer.msgpack`` of
+``{"vision", "text", "text_projection"}``, the trees in the flax layout of
+``utils/weights.py`` ``module_to_flax_tree``), which the JAX package loads as its own
+and the port reads as well:
 
 * ``--sd-base`` and ``--adapter``: the student (the SD-2.1-base UNet and VAE decoder
   under the adapter: hexa-LoRA, LoCon, the ``conv_out`` retrofit, the field MLPs)
@@ -51,6 +58,7 @@ from ..utils.checkpoint import (
     load_teacher_params,
     load_torch_adapter,
     save_params,
+    save_teacher,
 )
 from ..utils.convert_torch import convert_clip_text, convert_unet, convert_vae
 
@@ -71,9 +79,9 @@ def _report(what: str, module: torch.nn.Module, loaded: List[str], dropped: int,
 
 
 def convert_student(adapter: Optional[str], sd_base: Optional[str], out_dir: str, strict: bool,
-                    pipe) -> Dict[str, Any]:
+                    pipe, fmt: str = "pt") -> Dict[str, Any]:
     """The SD-base UNet and VAE (diffusers) and the adapter ``.pth`` onto the geometry
-    of ``pipe`` (a ``TriplaneTurboTextTo3DPipeline``) -> ``out_dir/geometry.pt``;
+    of ``pipe`` (a ``TriplaneTurboTextTo3DPipeline``) -> ``out_dir/geometry.{fmt}``;
     returns the counts."""
     geometry = pipe.geometry
     loaded, dropped, mismatched = [], 0, []
@@ -93,14 +101,14 @@ def convert_student(adapter: Optional[str], sd_base: Optional[str], out_dir: str
         loaded += got
         mismatched += bad
     stats = _report("student", geometry, loaded, dropped, mismatched, strict)
-    save_params(os.path.join(out_dir, "geometry.pt"), geometry)
+    save_params(os.path.join(out_dir, f"geometry.{fmt}"), geometry)
     return stats
 
 
 def convert_text_encoder(sd_base: str, out_dir: str, strict: bool,
-                         pipe) -> Optional[Dict[str, Any]]:
+                         pipe, fmt: str = "pt") -> Optional[Dict[str, Any]]:
     """``sd_base/text_encoder/pytorch_model.bin`` (HF ``CLIPTextModel``) onto the text
-    encoder of ``pipe`` -> ``out_dir/text_encoder.pt``; returns the counts, or None
+    encoder of ``pipe`` -> ``out_dir/text_encoder.{fmt}``; returns the counts, or None
     without the file."""
     path = os.path.join(sd_base, "text_encoder", "pytorch_model.bin")
     if not os.path.exists(path):
@@ -111,15 +119,15 @@ def convert_text_encoder(sd_base: str, out_dir: str, strict: bool,
                                                   n_layers=enc.cfg.layers),
                                 enc, "text encoder", strict)
     stats = _report("text encoder", enc, loaded, 0, mismatched, strict)
-    save_params(os.path.join(out_dir, "text_encoder.pt"), enc)
+    save_params(os.path.join(out_dir, f"text_encoder.{fmt}"), enc)
     return stats
 
 
 def convert_teacher(kind: str, ckpt: str, out_dir: str, strict: bool,
                     dtype_str: str = "bfloat16", device: str = "cuda",
-                    sizes: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """A teacher checkpoint (LDM or diffusers) -> ``out_dir/{kind}_teacher.pt``
-    (``{"unet": state_dict, "vae": state_dict or {}}``); returns the counts."""
+                    sizes: Optional[Dict[str, Any]] = None, fmt: str = "pt") -> Dict[str, Any]:
+    """A teacher checkpoint (LDM or diffusers) -> ``out_dir/{kind}_teacher.{fmt}``
+    (:func:`save_teacher`); returns the counts."""
     from ..systems.builder import build_teacher
 
     bundle = build_teacher(kind, torch.Generator(device=device).manual_seed(0), sizes,
@@ -127,24 +135,22 @@ def convert_teacher(kind: str, ckpt: str, out_dir: str, strict: bool,
     cfg = bundle.unet.cfg
     got = load_teacher_params(ckpt, bundle.unet, bundle.vae, n_blocks=len(cfg.block_out_channels),
                               layers_per_block=cfg.layers_per_block, strict=strict)
-    stats, state = {}, {"unet": {}, "vae": {}}
+    stats = {}
     for what in ("unet", "vae"):
         module = getattr(bundle, what)
         if module is not None:
             loaded, mismatched = got.get(what, ([], []))
             stats[what] = _report(f"{kind} teacher {what}", module, loaded, 0, mismatched,
                                   strict)
-            state[what] = {k: v.detach().cpu() for k, v in module.state_dict().items()}
-    path = os.path.join(out_dir, f"{kind}_teacher.pt")
-    os.makedirs(out_dir, exist_ok=True)
-    torch.save(state, path)
+    save_teacher(os.path.join(out_dir, f"{kind}_teacher.{fmt}"), bundle.unet, bundle.vae)
     return stats
 
 
-def convert_clip(ckpt: str, out_dir: str, strict: bool, device: str = "cuda") -> Dict[str, Any]:
+def convert_clip(ckpt: str, out_dir: str, strict: bool, device: str = "cuda",
+                 fmt: str = "pt") -> Dict[str, Any]:
     """An HF ``CLIPModel`` (ViT-B/32) state dict onto the scorer's random towers (seed
-    0) -> ``out_dir/clip_scorer.pt``; returns the counts."""
-    from ..evaluation.clipscore import CLIPScorer, load_hf_clip
+    0) -> ``out_dir/clip_scorer.{fmt}`` (:func:`save_scorer`); returns the counts."""
+    from ..evaluation.clipscore import CLIPScorer, load_hf_clip, save_scorer
 
     scorer = CLIPScorer(seed=0, device=device)
     loaded, mismatched = load_hf_clip(_torch_state_numpy(ckpt), scorer, strict=strict)
@@ -154,11 +160,7 @@ def convert_clip(ckpt: str, out_dir: str, strict: bool, device: str = "cuda") ->
              "dropped": 0,
              "mismatched": len(mismatched)}
     print(f"clip scorer: {json.dumps(stats)}", flush=True)
-    os.makedirs(out_dir, exist_ok=True)
-    torch.save({"vision": {k: v.cpu() for k, v in scorer.vision.state_dict().items()},
-                "text": {k: v.cpu() for k, v in scorer.text.state_dict().items()},
-                "text_projection": scorer.text_projection.cpu()},
-               os.path.join(out_dir, "clip_scorer.pt"))
+    save_scorer(os.path.join(out_dir, f"clip_scorer.{fmt}"), scorer)
     return stats
 
 
@@ -188,6 +190,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--clip", help="HF clip-vit-base-patch32 state dict (pytorch_model.bin)")
     ap.add_argument("--out", default="pretrained_converted")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    ap.add_argument("--format", default="pt", choices=("pt", "msgpack"),
+                    help="the port's .pt files (the default) or the JAX package's .msgpack")
     ap.add_argument("--strict", action="store_true")
     return ap
 
@@ -204,18 +208,19 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
         pipe = TriplaneTurboTextTo3DPipeline.from_pretrained(None, seed=0, device=args.device)
         stats["student"] = convert_student(args.adapter, args.sd_base, args.out, args.strict,
-                                           pipe=pipe)
+                                           pipe=pipe, fmt=args.format)
         if args.sd_base:
             stats["text_encoder"] = convert_text_encoder(args.sd_base, args.out, args.strict,
-                                                         pipe=pipe)
+                                                         pipe=pipe, fmt=args.format)
         write_config(args.out, args.sd_base)
         del pipe
     for kind, path in (("mv", args.mvdream), ("rd", args.richdreamer), ("sd", args.sd_teacher)):
         if path:
             stats[f"{kind}_teacher"] = convert_teacher(kind, path, args.out, args.strict,
-                                                       device=args.device)
+                                                       device=args.device, fmt=args.format)
     if args.clip:
-        stats["clip_scorer"] = convert_clip(args.clip, args.out, args.strict, device=args.device)
+        stats["clip_scorer"] = convert_clip(args.clip, args.out, args.strict, device=args.device,
+                                            fmt=args.format)
     return stats
 
 

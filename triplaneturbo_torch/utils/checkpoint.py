@@ -1,20 +1,29 @@
-"""Checkpoint I/O: the port's ``torch.save`` files and the reference's checkpoints.
+"""Checkpoint I/O: the port's ``torch.save`` files, the JAX package's flax ``msgpack``
+files and the reference's checkpoints.
 
 Counterpart of ``triplaneturbo_tpu/utils/checkpoint.py`` without flax or orbax:
-:func:`save_params` / :func:`load_params` hold a module's ``state_dict`` (the
-geometry's, in the launcher); :func:`save_train_state` / :func:`load_train_state`
-hold what a resumed run needs: the trainer's trainable partition by name, the
-guarded Adan state (Adan's step count and moments, the accumulation cycle and the
-finiteness gate's counters), ``global_step`` and the states of the host generators
-that draw a step's timesteps and batch, so that a resumed run takes the steps an
-uninterrupted one would. :func:`load_weights` reads ``system.weights``: the port's
-``geometry.pt`` or the reference's adapter ``.pth``.
+:func:`save_params` / :func:`load_params` hold a module's weights (the geometry's, in
+the launcher), chosen by the extension: a ``.pt`` of its ``state_dict`` (the port's
+default), or a ``.msgpack`` of its flax tree ``{"params": ...}`` as the JAX package's
+``save_params`` writes it (``utils/msgpack_io.py``, ``utils/weights.py``
+``module_to_flax_tree``), which the JAX package reads back and which holds what the
+JAX package writes. :func:`save_train_state` / :func:`load_train_state` hold what a
+resumed run needs: the trainer's trainable partition by name, the guarded Adan state
+(Adan's step count and moments, the accumulation cycle and the finiteness gate's
+counters), ``global_step`` and the states of the host generators that draw a step's
+timesteps and batch, so that a resumed run takes the steps an uninterrupted one would;
+the JAX launcher's orbax train state is not read. :func:`load_weights` reads
+``system.weights``: a ``geometry.pt``, a ``geometry.msgpack`` (the JAX launcher's
+``ckpt_*/`` and ``last/`` files) or the reference's adapter ``.pth``.
 
-The readers of the reference's formats, after the JAX module: the adapter ``.pth``
-(:func:`load_torch_adapter`), teacher checkpoints in the diffusers and LDM layouts
-(:func:`load_teacher_params`) and pipeline directories
-(:func:`maybe_load_pipeline_params`), through ``utils/convert_torch.py``. The flax
-``msgpack`` files the JAX package itself writes wait for ROADMAP A20b.
+The readers of the other formats, after the JAX module: the adapter ``.pth``
+(:func:`load_torch_adapter`), teacher checkpoints in the diffusers and LDM layouts and
+the ``{kind}_teacher.msgpack`` / ``.pt`` files (:func:`load_teacher_params`), and
+pipeline directories of ``geometry`` and ``text_encoder`` files
+(:func:`maybe_load_pipeline_params`), through ``utils/convert_torch.py``. A reader
+of the reference's layouts that leaves a parameter at its random initialisation warns
+of it, and with ``strict`` raises; the port's ``.pt`` and the flax ``.msgpack`` files
+must fit their modules exactly.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import msgpack_io
 from .convert_torch import (
     apply_flat_to_module,
     convert_adapters,
@@ -33,20 +43,72 @@ from .convert_torch import (
     convert_unet,
     convert_vae,
 )
+from .weights import _flatten, module_to_flax_tree
 
 TRAIN_STATE_FILE = "train_state.pt"
 _LOG = logging.getLogger("triplaneturbo_torch")
 
 
+def _is_msgpack(path) -> bool:
+    return str(path).endswith(".msgpack")
+
+
+def save_msgpack(path: str, tree: Any) -> str:
+    """``tree`` (nested dicts of arrays and tensors) into ``path`` in the flax
+    ``msgpack`` format, as ``flax.serialization.to_bytes`` writes it."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        msgpack_io.dump(tree, f)
+    return path
+
+
+def load_msgpack(path: str) -> Any:
+    """The tree of a flax ``msgpack`` file (``utils/msgpack_io.py`` ``load``)."""
+    with open(path, "rb") as f:
+        return msgpack_io.load(f)
+
+
+def flax_params(module: torch.nn.Module) -> Dict[str, Any]:
+    """``{"params": tree}``: what the JAX package saves for ``module``'s counterpart."""
+    return {"params": module_to_flax_tree(module)}
+
+
 def save_params(path: str, module: torch.nn.Module) -> str:
+    """``module``'s weights into ``path``: its ``state_dict`` with ``torch.save``, or
+    for a ``.msgpack`` path its flax tree ``{"params": ...}`` (:func:`flax_params`)."""
+    if _is_msgpack(path):
+        return save_msgpack(path, flax_params(module))
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, path)
     return path
 
 
 def load_params(path: str, module: torch.nn.Module) -> torch.nn.Module:
+    """``module``'s weights from ``path``, in place: a ``.pt`` of its ``state_dict`` or
+    a flax ``.msgpack`` (:func:`load_flax_tree`). Either raises on a parameter the file
+    leaves random, a leaf with no place or a leaf of another shape."""
+    if _is_msgpack(path):
+        load_flax_tree(load_msgpack(path), module, f"params of {path}")
+        return module
     module.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
     return module
+
+
+def load_flax_tree(tree: Any, module: torch.nn.Module, what: str) -> List[str]:
+    """A flax parameter tree (``{"params": ...}`` or the tree under it, as a msgpack
+    file holds it) onto ``module``, in place, each leaf cast to its parameter's dtype.
+    Raises, as ``load_state_dict`` does, on a leaf with no place or of another shape
+    and on a parameter left at its random initialisation. Returns the names loaded."""
+    loaded, _ = _apply(_flatten(_params_tree(tree, what)), module, what, strict=True)
+    _unloaded(what, module, loaded, strict=True)
+    return loaded
+
+
+def _params_tree(tree: Any, what: str) -> Dict[str, Any]:
+    """The parameter tree of a flax file's ``{"params": ...}`` (or the tree itself)."""
+    if not isinstance(tree, dict):
+        raise ValueError(f"{what}: a flax parameter tree, got {type(tree).__name__}")
+    return tree["params"] if set(tree) == {"params"} else tree
 
 
 def _optimizer_state(optimizer) -> Dict[str, Any]:
@@ -133,30 +195,23 @@ def load_train_state(path: str, trainer,
     return trainer.global_step
 
 
-def _a20b(path: str):
-    raise NotImplementedError(
-        f"reading {path}, a flax msgpack file of the JAX package, waits for ROADMAP A20b")
-
-
 def check_weights_format(path: str) -> None:
     """Raise unless ``path`` is a ``system.weights`` file :func:`load_weights` reads:
-    the port's ``geometry.pt`` or the reference's adapter ``.pth``. The JAX package's
-    flax ``.msgpack`` raises naming ROADMAP A20b; a missing file raises before the
-    system is built."""
+    a ``geometry.pt`` of the port, a ``geometry.msgpack`` of either package or the
+    reference's adapter ``.pth``; a missing file raises before the system is built."""
     path = str(path)
-    if path.endswith(".msgpack"):
-        _a20b(path)
-    if not path.endswith((".pt", ".pth")):
-        raise ValueError(f"system.weights {path}: a geometry.pt of the port or an adapter .pth")
+    if not path.endswith((".pt", ".pth", ".msgpack")):
+        raise ValueError(f"system.weights {path}: a geometry.pt or geometry.msgpack, or an "
+                         "adapter .pth")
     if not os.path.exists(path):
         raise FileNotFoundError(path)
 
 
 def load_weights(path: str, trainer) -> None:
     """``system.weights``: module weights without optimizer state, as the reference's:
-    the geometry's ``state_dict`` from a ``geometry.pt`` that :func:`save_params`
-    wrote, or the reference's adapter ``.pth`` through :func:`load_torch_adapter`
-    (as the JAX builder reads it)."""
+    the geometry's from a ``geometry.pt`` or ``geometry.msgpack`` that
+    :func:`save_params` (or the JAX package's) wrote, or the reference's adapter
+    ``.pth`` through :func:`load_torch_adapter` (as the JAX builder reads them)."""
     check_weights_format(path)
     if str(path).endswith(".pth"):
         load_torch_adapter(str(path), trainer.geometry)
@@ -236,25 +291,22 @@ def load_torch_adapter(path: str, geometry: torch.nn.Module,
 
 def maybe_load_pipeline_params(path: str, geometry: torch.nn.Module,
                                text_encoder: torch.nn.Module):
-    """The pipeline's weights, in place: from a directory of the port's
-    ``geometry.pt`` and ``text_encoder.pt`` (what ``tools/convert_checkpoints.py``
-    writes; the JAX package reads its own ``.msgpack`` files there, which raise
-    naming ROADMAP A20b), or from an adapter ``.pth`` over the backbone the modules
-    hold. Unlike the JAX reader, a directory without one of the two files, or a path
-    that is neither, raises ``FileNotFoundError`` rather than leaving weights random."""
+    """The pipeline's weights, in place: from a directory of ``geometry`` and
+    ``text_encoder`` files, each the port's ``.pt`` or a flax ``.msgpack`` (what
+    either package's ``tools/convert_checkpoints.py`` writes, as the JAX reader reads
+    its own), or from an adapter ``.pth`` over the backbone the modules hold. Unlike
+    the JAX reader, a directory without one of the two files, or a path that is
+    neither, raises ``FileNotFoundError`` rather than leaving weights random; a
+    file that leaves a parameter random raises."""
     path = str(path)
     if os.path.isdir(path):
         for name, module in (("geometry", geometry), ("text_encoder", text_encoder)):
-            pt = os.path.join(path, f"{name}.pt")
-            if os.path.exists(pt):
-                load_params(pt, module)
-                _LOG.info("loaded %s from %s", name, pt)
-            elif os.path.exists(os.path.join(path, f"{name}.msgpack")):
-                _a20b(os.path.join(path, f"{name}.msgpack"))
-            else:
-                raise FileNotFoundError(f"{path} holds no {name}.pt")
-    elif path.endswith(".msgpack"):
-        _a20b(path)
+            files = [os.path.join(path, f"{name}{ext}") for ext in (".pt", ".msgpack")]
+            found = [f for f in files if os.path.exists(f)]
+            if not found:
+                raise FileNotFoundError(f"{path} holds no {name}.pt or {name}.msgpack")
+            load_params(found[0], module)
+            _LOG.info("loaded %s from %s", name, found[0])
     elif path.endswith(".pth") and os.path.exists(path):
         load_torch_adapter(path, geometry)
     else:
@@ -264,6 +316,21 @@ def maybe_load_pipeline_params(path: str, geometry: torch.nn.Module,
 
 # what a whole VAE's checkpoint holds and a teacher's encoder-only VAE has no place for
 _TEACHER_VAE_LACKS = ("decoder/", "post_quant_conv/")
+
+
+def save_teacher(path: str, unet: torch.nn.Module, vae: Optional[torch.nn.Module]) -> str:
+    """A teacher's ``{"unet", "vae"}`` (``vae`` ``{}`` when there is none) into ``path``,
+    as :func:`load_teacher_params` reads it: state dicts in a ``.pt``, flax trees in a
+    ``.msgpack``."""
+    if _is_msgpack(path):
+        return save_msgpack(path, {"unet": flax_params(unet),
+                                   "vae": flax_params(vae) if vae is not None else {}})
+    state = {"unet": {k: v.detach().cpu() for k, v in unet.state_dict().items()}, "vae": {}}
+    if vae is not None:
+        state["vae"] = {k: v.detach().cpu() for k, v in vae.state_dict().items()}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(state, path)
+    return path
 
 
 def _is_port_teacher(ckpt: Any) -> bool:
@@ -283,14 +350,18 @@ def load_teacher_params(path: str, unet: torch.nn.Module, vae: Optional[torch.nn
       ``model_ema`` shadows win;
     * a bare diffusers UNet state dict;
     * the port's own ``{kind}_teacher.pt`` (``{"unet": state_dict, "vae":
-      state_dict or {}}``, what ``tools/convert_checkpoints.py`` writes), where the JAX
-      package reads its ``{kind}_teacher.msgpack`` (which raises naming ROADMAP A20b).
+      state_dict or {}}``, what ``tools/convert_checkpoints.py`` writes);
+    * a ``{kind}_teacher.msgpack`` (``{"unet": flax tree, "vae": flax tree or {}}``,
+      what the JAX package's ``tools/convert_checkpoints.py`` and the port's with
+      ``--format msgpack`` write; :func:`save_teacher`).
 
-    A whole VAE's decoder half is left out for the teacher's encoder. A path that
-    gives the UNet no tensor raises ``ValueError``; a parameter left at its random
-    initialisation is warned of. With ``strict`` every converted tensor must land and
-    every parameter of ``unet`` and ``vae`` must be loaded. Returns ``{"unet": (names
-    loaded, keys not), "vae": ...}``. Unpickles ``path``."""
+    The port's two files must fit the modules exactly, as ``load_state_dict`` holds
+    them. Of the reference's layouts, a whole VAE's decoder half is left out for the
+    teacher's encoder; a path that gives the UNet no tensor raises ``ValueError``; a
+    parameter left at its random initialisation is warned of. With ``strict`` every
+    converted tensor must land and every parameter of ``unet`` and ``vae`` must be
+    loaded. Returns ``{"unet": (names
+    loaded, keys not), "vae": ...}``. Unpickles a torch ``path``."""
     out: Dict[str, Tuple[List[str], List[str]]] = {}
 
     def apply(flat, module, what, lacks=()):
@@ -298,9 +369,14 @@ def load_teacher_params(path: str, unet: torch.nn.Module, vae: Optional[torch.nn
             out[what] = _apply(_without(flat, lacks), module, f"teacher {what}", strict)
 
     path = str(path)
-    if path.endswith(".msgpack"):
-        _a20b(path)
-    if os.path.isdir(path):
+    if _is_msgpack(path):
+        tree = load_msgpack(path)
+        if not (isinstance(tree, dict) and set(tree) == {"unet", "vae"}):
+            raise ValueError(f"{path}: a teacher msgpack holds {{'unet', 'vae'}}")
+        for what, module in (("unet", unet), ("vae", vae)):
+            if module is not None:
+                out[what] = (load_flax_tree(tree[what], module, f"teacher {what}"), [])
+    elif os.path.isdir(path):
         unet_bin = os.path.join(path, "unet", "diffusion_pytorch_model.bin")
         vae_bin = os.path.join(path, "vae", "diffusion_pytorch_model.bin")
         if os.path.exists(unet_bin):

@@ -6,14 +6,17 @@ reference vertex slot 0. Vertex normals are the area-weighted sum of face
 normals, scattered with ``index_add``; ``normal_consistency`` and
 ``laplacian`` are the first renderer's mesh regularizers. Every norm keeps
 its eps inside the sqrt, so zero rows (padded slots, masked faces) have
-finite, zero gradients.
+finite, zero gradients. ``vertex_tangents`` (from UVs, for tangent-space normal
+maps) and ``remove_outliers`` (small components dropped on the host, by the masks)
+follow the JAX package's.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, replace
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -33,6 +36,20 @@ class Mesh:
     v_mask: Optional[torch.Tensor] = None  # [V] bool
     t_mask: Optional[torch.Tensor] = None  # [F] bool
     v_rgb: Optional[torch.Tensor] = None  # [V, 3]
+    v_nrm: Optional[torch.Tensor] = None  # [V, 3]
+    v_tex: Optional[torch.Tensor] = None  # [V, 2]
+
+    @property
+    def num_capacity_verts(self) -> int:
+        return self.v_pos.shape[0]
+
+    @property
+    def num_capacity_faces(self) -> int:
+        return self.t_pos_idx.shape[0]
+
+    def with_(self, **kw) -> "Mesh":
+        """A copy with the fields ``kw`` replaced."""
+        return replace(self, **kw)
 
     def valid_vert_mask(self) -> torch.Tensor:
         if self.v_mask is None:
@@ -61,6 +78,79 @@ class Mesh:
         for k in range(3):
             vn = vn.index_add(0, self.t_pos_idx[:, k], fn)
         return _normalize(vn, eps) * self.valid_vert_mask()[:, None]
+
+    def vertex_tangents(self, t_tex_idx: Optional[torch.Tensor] = None,
+                        eps: float = 1e-20) -> torch.Tensor:
+        """Per-vertex tangents [V, 3] from the UVs ``v_tex`` (``t_tex_idx`` [F, 3], the
+        faces' UV indices, defaults to ``t_pos_idx``): each face's tangent from its UV
+        Jacobian, with the determinant clamped away from 0 with its sign (|d| >= 1e-6;
+        0 counts as negative), averaged over the vertex's valid faces, normalised, then
+        made orthogonal to the vertex normal (``v_nrm``, or :meth:`vertex_normals`)."""
+        if self.v_tex is None:
+            raise ValueError("vertex_tangents requires v_tex UV coordinates")
+        tex_idx = self.t_pos_idx if t_tex_idx is None else t_tex_idx
+        p0, p1, p2 = (_rows(self.v_pos, self.t_pos_idx[:, k]) for k in range(3))
+        t0, t1, t2 = (_rows(self.v_tex, tex_idx[:, k]) for k in range(3))
+        uve1, uve2 = t1 - t0, t2 - t0
+        pe1, pe2 = p1 - p0, p2 - p0
+        nom = pe1 * uve2[:, 1:2] - pe2 * uve1[:, 1:2]
+        denom = uve1[:, 0:1] * uve2[:, 1:2] - uve1[:, 1:2] * uve2[:, 0:1]
+        denom = torch.where(denom > 0.0, torch.clamp_min(denom, 1e-6),
+                            torch.clamp_max(denom, -1e-6))
+        fm = self.valid_face_mask().to(self.v_pos.dtype)[:, None]
+        tang = (nom / denom) * fm
+        tangents = torch.zeros_like(self.v_pos)
+        tansum = torch.zeros_like(self.v_pos)
+        for k in range(3):
+            tangents = tangents.index_add(0, self.t_pos_idx[:, k], tang)
+            tansum = tansum.index_add(0, self.t_pos_idx[:, k], fm.expand_as(tang))
+        tangents = _normalize(tangents / torch.clamp_min(tansum, 1.0), eps)
+        vn = self.v_nrm if self.v_nrm is not None else self.vertex_normals()
+        tangents = _normalize(tangents - (tangents * vn).sum(-1, keepdim=True) * vn, eps)
+        return tangents * self.valid_vert_mask()[:, None]
+
+    def remove_outliers(self, outlier_n_faces_threshold: Union[int, float] = 0.01) -> "Mesh":
+        """The mesh without its small connected components, by the masks (the
+        capacities stay): a component of valid faces is kept when it has at least
+        ``outlier_n_faces_threshold`` faces (an int) or that share of the largest
+        component's (a float). Vertices are kept where a kept face uses them. Runs on
+        the host (union-find over the valid faces)."""
+        faces = self.t_pos_idx.detach().cpu().numpy()
+        fmask = self.valid_face_mask().detach().cpu().numpy()
+        idx = np.nonzero(fmask)[0]
+        if len(idx) == 0:
+            return self
+        parent = np.arange(self.num_capacity_verts)
+
+        def find(a):
+            root = a
+            while parent[root] != root:
+                root = parent[root]
+            while parent[a] != root:
+                parent[a], a = root, parent[a]
+            return root
+
+        f = faces[idx]
+        for tri in f:
+            r0 = find(tri[0])
+            for v in tri[1:]:
+                rv = find(v)
+                if rv != r0:
+                    parent[rv] = r0
+        comp = np.array([find(v) for v in f[:, 0]])
+        labels, counts = np.unique(comp, return_counts=True)
+        if isinstance(outlier_n_faces_threshold, float):
+            keep_min = counts.max() * outlier_n_faces_threshold
+        else:
+            keep_min = outlier_n_faces_threshold
+        keep_face = np.isin(comp, labels[counts >= keep_min])
+        new_fmask = fmask.copy()
+        new_fmask[idx[~keep_face]] = False
+        new_vmask = np.zeros(self.num_capacity_verts, bool)
+        new_vmask[faces[new_fmask].reshape(-1)] = True
+        dev = self.v_pos.device
+        return self.with_(t_mask=torch.from_numpy(new_fmask).to(dev),
+                          v_mask=torch.from_numpy(new_vmask).to(dev))
 
     def normal_consistency(self) -> torch.Tensor:
         """Mean of 1 - cos between the vertex normals at the two ends of

@@ -14,7 +14,9 @@ one torch parameter by its last name alone:
 
 The same mapping carries any tree shaped like the parameters (gradients,
 optimizer moments) across, in either direction: :func:`flax_tree_to_named`,
-:func:`named_to_flax_tree`, :func:`load_adan_state`. It covers the geometry
+:func:`named_to_flax_tree`, :func:`load_adan_state`. :func:`module_to_flax_tree`
+inverts it from the module alone, deciding ``kernel``, ``scale`` or ``embedding``
+by each parameter's module type: the tree the JAX package saves for that module. It covers the geometry
 the hash-grid background (``hypernet/fc_in``, ``ln_in``, ``fc_out``,
 ``encoding/table``) and the volume renderer (``variance_inv_std``) alike.
 """
@@ -34,6 +36,15 @@ from ..models.renderers.volume_renderer import GenerativeSpaceSDFVolumeRenderer
 from ..ops.hashgrid import HashGridEncoding
 
 
+def _numpy(v) -> np.ndarray:
+    """A leaf as a numpy array; a torch tensor on the host, bfloat16 (which numpy
+    lacks) widened to float32, which holds it exactly."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
+
+
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for k, v in tree.items():
@@ -41,7 +52,7 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
         if isinstance(v, Mapping):
             out.update(_flatten(v, path))
         else:
-            out[path] = np.asarray(v)
+            out[path] = _numpy(v)
     return out
 
 
@@ -75,6 +86,41 @@ def flax_tree_to_named(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """A flax-shaped tree (parameters, gradients, moments) as a dict from the
     port's parameter names to arrays in the port's layout."""
     return dict(_torch_leaf(p, a) for p, a in _flatten(tree).items())
+
+
+def module_to_flax_tree(module: nn.Module) -> Dict[str, Any]:
+    """``module``'s parameters as the flax tree of the JAX package's counterpart (the
+    nested dict under ``"params"``), in the flax layout: the inverse of
+    :func:`flax_tree_to_named`. A ``Linear`` weight becomes ``kernel`` ``[in, out]``, a
+    ``Conv2d`` weight ``kernel`` HWIO (a plane-stacked grouped conv's ``[P, kh, kw, I,
+    O]``, its bias ``[P, O]``), a norm's weight ``scale`` and an ``Embedding``'s
+    ``embedding``; every other parameter keeps its name and layout. The leaves are
+    detached views of the parameters, on their device and in their dtype."""
+    tree: Dict[str, Any] = {}
+    for mod_name, m in module.named_modules():
+        mods = mod_name.split(".") if mod_name else []
+        for leaf, p in m.named_parameters(recurse=False):
+            t = p.detach()
+            if leaf == "weight" and isinstance(m, nn.Linear):
+                leaf, t = "kernel", t.T
+            elif leaf == "weight" and isinstance(m, nn.Conv2d):
+                if "planes" in mods:  # the groups of a grouped conv, one a plane
+                    P = m.groups
+                    t = t.reshape(P, t.shape[0] // P, *t.shape[1:]).permute(0, 3, 4, 2, 1)
+                else:
+                    t = t.permute(2, 3, 1, 0)
+                leaf = "kernel"
+            elif leaf == "weight" and isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+                leaf = "scale"
+            elif leaf == "weight" and isinstance(m, nn.Embedding):
+                leaf = "embedding"
+            elif leaf == "bias" and "planes" in mods:
+                t = t.reshape(m.groups, -1)
+            node = tree
+            for k in mods:
+                node = node.setdefault(k, {})
+            node[leaf] = t
+    return tree
 
 
 def named_to_flax_tree(named: Mapping[str, Any], like: Mapping[str, Any]) -> Dict[str, Any]:
