@@ -780,3 +780,74 @@ def test_hexa_locon_block_on_the_card_matches_the_cpu(cuda):
         ref = block(x.to(dtype), temb.to(dtype)).float()
         got = block.to("cuda")(x.to("cuda", dtype), temb.to("cuda", dtype)).float().cpu()
         assert (got - ref).abs().max().item() <= tol * ref.abs().max().item(), dtype
+
+
+# -- the tracer on the card (utils/profiling.py) ----------------------------------------
+
+
+def test_span_encloses_its_launch_on_the_profilers_clock(cuda):
+    """A span's ``time.time_ns()`` interval holds the runtime call that launched its one
+    kernel, and the kernel starts on the device after the span opened: the host spans
+    and CUPTI's device times share the profiler's clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from triplaneturbo_torch.utils import profiling
+
+    torch.cuda._sleep(1000)  # the launch path warm
+    torch.cuda.synchronize()
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiling.span("sleep") as rec:
+            torch.cuda._sleep(100000)
+        torch.cuda.synchronize()
+    assert rec is not None and profiling.spans() == [rec]
+    events = list(prof.profiler.kineto_results.events())
+    launches = [e for e in events if "LaunchKernel" in e.name()]
+    kernels = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+               and "spin" in e.name()]
+    assert len(launches) == 1 and len(kernels) == 1, [e.name() for e in events]
+    launch, kernel = launches[0], kernels[0]
+    assert rec.start_ns <= launch.start_ns()
+    assert launch.start_ns() + launch.duration_ns() <= rec.end_ns
+    assert kernel.start_ns() >= rec.start_ns
+    profiling.clear()
+
+
+def test_syncs_are_counted_on_the_innermost_span(cuda):
+    from triplaneturbo_torch.utils import profiling
+
+    x = torch.ones(4, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    with profiling.recording():
+        with profiling.span("request") as root:
+            assert torch.cuda.get_sync_debug_mode() == 1
+            with profiling.span("inner") as inner:
+                x.sum().item()
+                x.max().item()
+            y = x * 2  # no sync
+    assert inner.counts == {"syncs": 2} and root.counts == {"syncs": 0}
+    assert torch.cuda.get_sync_debug_mode() == before
+    assert float(y.sum().item()) == 8.0  # outside any request: not counted, no warning raised
+    profiling.clear()
+
+
+def test_a_span_entered_during_graph_capture_records_nothing(cuda):
+    from triplaneturbo_torch.utils import profiling
+
+    x = torch.ones(8, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = x * 2  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    profiling.clear()
+    with profiling.recording():
+        with torch.cuda.graph(graph):
+            with profiling.span("captured") as rec, profiling.stage("denoise") as st:
+                y = x * 2
+        assert rec is None and st is None and profiling.spans() == []
+        graph.replay()
+        torch.cuda.synchronize()
+    assert float(y.sum().item()) == 16.0

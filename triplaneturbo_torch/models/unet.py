@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from .attention import NO_ADAPTERS, AdapterSpec, Transformer2D
 from .unet_blocks import (
     AdaptedConv,
@@ -141,28 +142,31 @@ class UNet2DConditionModel(nn.Module):
 
         h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
         residuals = [h]
-        for i in range(n_blocks):
-            for j in range(cfg.layers_per_block):
-                h = run_block(getattr(self, f"down_{i}_res_{j}"), cfg.remat, h, temb)
+        with span("unet.down"):
+            for i in range(n_blocks):
+                for j in range(cfg.layers_per_block):
+                    h = run_block(getattr(self, f"down_{i}_res_{j}"), cfg.remat, h, temb)
+                    if i < n_blocks - 1:
+                        h = run_block(getattr(self, f"down_{i}_attn_{j}"), cfg.remat, h, ctx)
+                    residuals.append(h)
                 if i < n_blocks - 1:
-                    h = run_block(getattr(self, f"down_{i}_attn_{j}"), cfg.remat, h, ctx)
-                residuals.append(h)
-            if i < n_blocks - 1:
-                h = getattr(self, f"down_{i}_downsample")(h)
-                residuals.append(h)
+                    h = getattr(self, f"down_{i}_downsample")(h)
+                    residuals.append(h)
 
-        h = run_block(self.mid_res_0, cfg.remat, h, temb)
-        h = run_block(self.mid_attn, cfg.remat, h, ctx)
-        h = run_block(self.mid_res_1, cfg.remat, h, temb)
+        with span("unet.mid"):
+            h = run_block(self.mid_res_0, cfg.remat, h, temb)
+            h = run_block(self.mid_attn, cfg.remat, h, ctx)
+            h = run_block(self.mid_res_1, cfg.remat, h, temb)
 
-        for i in range(n_blocks):
-            for j in range(cfg.layers_per_block + 1):
-                h = torch.cat([h, residuals.pop()], dim=1)
-                h = run_block(getattr(self, f"up_{i}_res_{j}"), cfg.remat, h, temb)
-                if i > 0:
-                    h = run_block(getattr(self, f"up_{i}_attn_{j}"), cfg.remat, h, ctx)
-            if i < n_blocks - 1:
-                h = getattr(self, f"up_{i}_upsample")(h)
+        with span("unet.up"):
+            for i in range(n_blocks):
+                for j in range(cfg.layers_per_block + 1):
+                    h = torch.cat([h, residuals.pop()], dim=1)
+                    h = run_block(getattr(self, f"up_{i}_res_{j}"), cfg.remat, h, temb)
+                    if i > 0:
+                        h = run_block(getattr(self, f"up_{i}_attn_{j}"), cfg.remat, h, ctx)
+                if i < n_blocks - 1:
+                    h = getattr(self, f"up_{i}_upsample")(h)
 
         h = self.conv_out(F.silu(self.conv_norm_out(h)))
         return h.permute(0, 2, 3, 1).float()

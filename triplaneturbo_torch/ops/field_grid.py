@@ -32,6 +32,7 @@ from typing import Tuple
 import torch
 
 from ..utils import flops as _flops
+from ..utils.profiling import span
 from . import _build
 
 # Kernel launches since the count was last reset (the wrapper adds one per launch).
@@ -274,13 +275,15 @@ def fused_field_grid(m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d,
     """SDF + deformation on the dense grid, fused, differentiable.
 
     Same arguments and results as :func:`field_grid_reference`; all float32.
-    The hidden width of both MLPs must be 64 (the kernel's H = 128).
+    The hidden width of both MLPs must be 64 (the kernel's H = 128). The span
+    ``fused_field_grid`` holds the whole forward, ``_prep`` included.
     """
-    inputs = (m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d)
-    if m_xy.device.type == "cpu":
-        return field_grid_reference(*inputs, radius, bias_r, concat)
-    if m_xy.device.type != "cuda":
-        raise ValueError(f"fused_field_grid runs on cuda or cpu, got {m_xy.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        return _FusedFieldGrid.apply(float(radius), float(bias_r), bool(concat), *inputs)
-    return _prep_and_launch(inputs, radius, bias_r, concat)
+    with span("fused_field_grid"):
+        inputs = (m_xy, m_xz, m_zy, w1s, w2s, w3s, w1d, w2d, w3d)
+        if m_xy.device.type == "cpu":
+            return field_grid_reference(*inputs, radius, bias_r, concat)
+        if m_xy.device.type != "cuda":
+            raise ValueError(f"fused_field_grid runs on cuda or cpu, got {m_xy.device}")
+        if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+            return _FusedFieldGrid.apply(float(radius), float(bias_r), bool(concat), *inputs)
+        return _prep_and_launch(inputs, radius, bias_r, concat)

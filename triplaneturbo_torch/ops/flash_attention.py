@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils import flops as _flops
+from ..utils.profiling import span
 from . import _build
 
 # Kernel launches since each count was last reset (a wrapper adds one per launch).
@@ -364,15 +365,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     non-kernel route. That path takes its softmax in f32 and casts it to q's
     type before the product with v (``attention_pallas.py:309-319``), and
     autograd differentiates it.
+
+    The span ``flash_attention`` holds the whole op, either route and the copies
+    to the kernels' layout included (its forward: a backward runs in autograd).
     """
-    B, L, H, D = q.shape
-    Lk = k.shape[1]
-    if D in _HEAD_DIMS and L >= 128:
-        qf = q.transpose(1, 2).reshape(B * H, L, D).contiguous()
-        kf = k.transpose(1, 2).reshape(B * H, Lk, D).contiguous()
-        vf = v.transpose(1, 2).reshape(B * H, Lk, D).contiguous()
-        return flash_attention(qf, kf, vf).reshape(B, H, L, D).transpose(1, 2)
-    scale = 1.0 / math.sqrt(D)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    with span("flash_attention"):
+        B, L, H, D = q.shape
+        Lk = k.shape[1]
+        if D in _HEAD_DIMS and L >= 128:
+            qf = q.transpose(1, 2).reshape(B * H, L, D).contiguous()
+            kf = k.transpose(1, 2).reshape(B * H, Lk, D).contiguous()
+            vf = v.transpose(1, 2).reshape(B * H, Lk, D).contiguous()
+            return flash_attention(qf, kf, vf).reshape(B, H, L, D).transpose(1, 2)
+        scale = 1.0 / math.sqrt(D)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)

@@ -24,7 +24,6 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
-from torch.profiler import record_function
 
 from ..models.clip_text import CLIPTextConfig, CLIPTextEncoder
 from ..models.geometry.space_generator import SpaceGeneratorConfig
@@ -34,6 +33,7 @@ from ..models.schedulers import Schedule, SchedulerConfig, ddim_step, ddim_times
 from ..models.tokenizer import CLIPTokenizer
 from ..ops.isosurface import ExtractedMesh, marching_cubes, marching_tets
 from ..utils.mesh import Mesh
+from ..utils.profiling import span, stage
 from ..utils.saving import save_obj
 from ..utils.weights import init_random_
 
@@ -160,8 +160,9 @@ class TriplaneTurboTextTo3DPipeline:
         cfg = self.cfg
         latents = x0 = init_latents
         for t in ddim_timesteps(self.schedule, cfg.num_inference_steps):
-            eps = self.geometry.denoise(latents, text_embed, int(t))
-            out = ddim_step(self.schedule, eps, int(t), latents, cfg.num_inference_steps)
+            with span("ddim_step"):
+                eps = self.geometry.denoise(latents, text_embed, int(t))
+                out = ddim_step(self.schedule, eps, int(t), latents, cfg.num_inference_steps)
             latents, x0 = out.prev_sample, out.pred_original_sample
         return x0
 
@@ -201,39 +202,39 @@ class TriplaneTurboTextTo3DPipeline:
                  return_dict: bool = True):
         """``latents`` [B, 6, r, r, 4] float32, or drawn from ``generator`` (seed 42
         when neither is given)."""
-        if isinstance(prompt, str):
-            prompt = [prompt]
-        prompt = [p for p in prompt for _ in range(num_results_per_prompt)]
-        B = len(prompt)
-        cfg = self.cfg
-        if latents is None:
-            if generator is None:
-                generator = torch.Generator(device=self.device).manual_seed(42)
-            r = cfg.latent_resolution
-            latents = torch.randn((B, cfg.n_planes, r, r, cfg.latent_channels),
-                                  generator=generator, device=self.device)
-        latents = latents.to(device=self.device, dtype=torch.float32)
+        with span("pipeline"):  # the root: its id is the call's request id
+            if isinstance(prompt, str):
+                prompt = [prompt]
+            prompt = [p for p in prompt for _ in range(num_results_per_prompt)]
+            B = len(prompt)
+            cfg = self.cfg
+            if latents is None:
+                if generator is None:
+                    generator = torch.Generator(device=self.device).manual_seed(42)
+                r = cfg.latent_resolution
+                latents = torch.randn((B, cfg.n_planes, r, r, cfg.latent_channels),
+                                      generator=generator, device=self.device)
+            latents = latents.to(device=self.device, dtype=torch.float32)
 
-        # the ranges name each stage for torch.profiler (microseconds each when it is off)
-        with record_function("text_encoder"):
-            text_embed = self.encode_prompt(prompt)
-        with record_function("denoise"):
-            out_latents = self.denoise_latents(text_embed, latents)
-        with record_function("vae_decode"):
-            space_cache = self.geometry.decode(out_latents)
-        meshes = []
-        for i in range(B):
-            with record_function("field_grid"):
-                sdf, deform = self.field_on_grid(space_cache[i])
-            with record_function("marching_cubes"):
-                m = self.extract_mesh(sdf, deform)
-            with record_function("colorize"):
-                color = self.colorize(m.verts, space_cache[i]) if colorize else None
-            meshes.append(Mesh(v_pos=m.verts, t_pos_idx=m.faces, v_mask=m.vert_mask,
-                               t_mask=m.face_mask, v_rgb=color))
-        if return_dict:
-            return {"space_cache": space_cache, "latents": out_latents, "mesh": meshes}
-        return meshes
+            with stage("text_encoder"):
+                text_embed = self.encode_prompt(prompt)
+            with stage("denoise"):
+                out_latents = self.denoise_latents(text_embed, latents)
+            with stage("vae_decode"):
+                space_cache = self.geometry.decode(out_latents)
+            meshes = []
+            for i in range(B):
+                with stage("field_grid"):
+                    sdf, deform = self.field_on_grid(space_cache[i])
+                with stage("marching_cubes"):
+                    m = self.extract_mesh(sdf, deform)
+                with stage("colorize"):
+                    color = self.colorize(m.verts, space_cache[i]) if colorize else None
+                meshes.append(Mesh(v_pos=m.verts, t_pos_idx=m.faces, v_mask=m.vert_mask,
+                                   t_mask=m.face_mask, v_rgb=color))
+            if return_dict:
+                return {"space_cache": space_cache, "latents": out_latents, "mesh": meshes}
+            return meshes
 
 
 def export_obj(mesh: Mesh, save_path: str, save_normal: bool = False) -> List[str]:

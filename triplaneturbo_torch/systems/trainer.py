@@ -50,7 +50,6 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..models.background.hashgrid_env_map import (
     HashgridBackgroundConfig,
@@ -88,6 +87,7 @@ from ..parallel.mesh import all_reduce_mean, all_reduce_sum, shard_batch, shard_
 from ..utils.flops import FlopCount, count_flops
 from ..utils.misc import get_rank, get_world_size
 from ..utils.ops import safe_normalize
+from ..utils.profiling import span, stage
 from ..utils.schedule import C, schedule_is_zero
 from ..utils.weights import init_random_
 from .builder import build_teacher
@@ -354,7 +354,7 @@ class TriplaneTurboTrainer:
         """
         g_space = (g_space_1st + g_space_2nd).detach()
         params = list(self.params_train.values())
-        with record_function("generator_backward"), torch.enable_grad():
+        with stage("generator_backward"), torch.enable_grad():
             _, space_cache = self._denoise_decode(latent, t, text_embeds, noise)
             grads = torch.autograd.grad(space_cache, params, grad_outputs=g_space,
                                         allow_unused=True)
@@ -367,7 +367,8 @@ class TriplaneTurboTrainer:
         if set(grads) != set(self.trainable):
             raise ValueError("the gradients do not cover the trainable partition")
         n = self.cfg.num_parts_training
-        return self.optimizer.step([grads[name] / n for name in self.trainable])
+        with span("stage_update"):
+            return self.optimizer.step([grads[name] / n for name in self.trainable])
 
     @staticmethod
     def accumulate(acc: Optional[Grads], grads: Grads) -> Grads:
@@ -536,11 +537,11 @@ class TriplaneTurboTrainer:
         ``n_list_overflow``, [B]), which the JAX program does not return."""
         text_global = text_embeds["global_21"]
         with torch.no_grad():
-            with record_function("generator_forward"):
+            with stage("generator_forward"):
                 denoised, space_cache = self._denoise_decode(latent, t, text_embeds, noise)
-            with record_function("render_1st"):
+            with stage("render_1st"):
                 out_1st, _ = self._render_branch(batch, space_cache, scalars, text_global, "1st")
-            with record_function("render_2nd"):
+            with stage("render_2nd"):
                 _, out_2nd = self._render_branch(batch, space_cache, scalars, text_global, "2nd",
                                                  draws)
         images = {f"{name}_{side}": out[name] for side, out in (("1st", out_1st), ("2nd", out_2nd))
@@ -565,7 +566,7 @@ class TriplaneTurboTrainer:
             raise ValueError(f"program B-R renders one branch, not {branch!r}")
         sc = space_cache.detach().requires_grad_()
         params = list(self.params_train.values())
-        with record_function(f"render_backward_{branch}"), torch.enable_grad():
+        with stage(f"render_backward_{branch}"), torch.enable_grad():
             out_1st, out_2nd = self._render_branch(batch, sc, scalars, text_embeds["global_21"],
                                                    branch, draws)
             out = out_1st if branch == "1st" else out_2nd
@@ -605,18 +606,23 @@ class TriplaneTurboTrainer:
         te = text_embeds
 
         def mv(d, rgb, rgb_2nd):
-            return g.mv_branch(d, rgb, te["cond_21"], te["uncond_21"], batch["c2w"],
-                               scalars["mv_min_step"], scalars["mv_guidance_scale"],
-                               rgb_2nd=rgb_2nd)
+            with span("teacher.mv"):
+                return g.mv_branch(d, rgb, te["cond_21"], te["uncond_21"], batch["c2w"],
+                                   scalars["mv_min_step"], scalars["mv_guidance_scale"],
+                                   rgb_2nd=rgb_2nd)
 
         def rd(d, n, disp, n2, disp2):
-            return g.rd_branch(d, n, disp, te["cond_15"], te["uncond_15"], batch["c2w"],
-                               batch["camera_distances_relative"], scalars["rd_min_step"],
-                               scalars["rd_guidance_scale"], normal_2nd=n2, disparity_2nd=disp2)
+            with span("teacher.rd"):
+                return g.rd_branch(d, n, disp, te["cond_15"], te["uncond_15"], batch["c2w"],
+                                   batch["camera_distances_relative"], scalars["rd_min_step"],
+                                   scalars["rd_guidance_scale"], normal_2nd=n2,
+                                   disparity_2nd=disp2)
 
         def sd(d, rgb, rgb_2nd):
-            return g.sd_branch(d, rgb, te["cond_21"], te["uncond_21"], scalars["sd_min_step"],
-                               scalars["sd_guidance_scale"], rgb_2nd=rgb_2nd)
+            with span("teacher.sd"):
+                return g.sd_branch(d, rgb, te["cond_21"], te["uncond_21"],
+                                   scalars["sd_min_step"], scalars["sd_guidance_scale"],
+                                   rgb_2nd=rgb_2nd)
 
         fid = 0.0
         if self.cfg.parallel_guidance:
@@ -648,7 +654,7 @@ class TriplaneTurboTrainer:
         if self.guidance is None:
             raise RuntimeError("the trainer was built without teachers (teacher_sizes)")
         imgs = {k: v.detach().requires_grad_() for k, v in images.items()}
-        with record_function("teacher"), torch.enable_grad():
+        with stage("teacher"), torch.enable_grad():
             o1 = {name: imgs[f"{name}_1st"] for name in self._GUIDANCE_IMAGE_KEYS}
             o2 = {name: imgs[f"{name}_2nd"] for name in self._GUIDANCE_IMAGE_KEYS}
             fid, gn = self._guidance_losses(o1, o2, batch, text_embeds, scalars, draws)
@@ -695,38 +701,40 @@ class TriplaneTurboTrainer:
         explicit ``draws`` (one :class:`PartDraws` a part) replaces them. Returns
         the metrics (``loss``, ``fidelity``, ``regularization``, ``grad_norm``, the
         per-part series and, with ``skip_nonfinite_grads``, ``skipped_nonfinite``:
-        the batches the finiteness gate has skipped so far)."""
-        cfg = self.cfg
-        n = cfg.num_parts_training
-        if len(batch_list) != n:
-            raise ValueError(f"{len(batch_list)} step-batches for {n} parts")
-        ts = sample_timesteps(self.all_timesteps, n, self.rng)
-        scalars = self.host_scalars()
-        device = self.schedule.betas.device
-        batches = [MultiviewMultipromptDataModule.to_device(
-            {k: v for k, v in b.items() if k != "noise" and not isinstance(v, (list, str))},
-            device) for b in batch_list]
-        latent = torch.as_tensor(batch_list[0]["noise"], dtype=torch.float32).to(device)
-        if draws is None:
-            if generator is None:
-                raise ValueError("train_step needs a generator or explicit draws")
-            draws = [self.draw_part(b, latent.shape, generator) for b in batches]
-        if len(draws) != n:
-            raise ValueError(f"{len(draws)} draws for {n} parts")
-        text_embeds = {k: v.to(device) for k, v in text_embeds.items()}
-        rank, world = get_rank(), get_world_size()
-        if world > 1:  # this rank's prompts, taken after every draw of the whole batch
-            n_prompts = latent.shape[0]
-            batches = [shard_batch(b, rank, world, n_prompts) for b in batches]
-            latent = shard_rows(latent, rank, world, n_prompts)
-            text_embeds = shard_batch(text_embeds, rank, world, n_prompts)
-            draws = [self._shard_draws(d, rank, world, n_prompts) for d in draws]
-        step = self._train_step_staged if cfg.auto_grad else self._train_step_monolithic
-        metrics = step(batches, [int(t) for t in ts], latent, text_embeds, scalars, draws)
-        if cfg.skip_nonfinite_grads:
-            metrics["skipped_nonfinite"] = self.optimizer.total_notfinite
-        self.global_step += 1
-        return metrics
+        the batches the finiteness gate has skipped so far). The step is the span
+        ``train_step``, the root of its request."""
+        with span("train_step"):  # the root: a step is one request
+            cfg = self.cfg
+            n = cfg.num_parts_training
+            if len(batch_list) != n:
+                raise ValueError(f"{len(batch_list)} step-batches for {n} parts")
+            ts = sample_timesteps(self.all_timesteps, n, self.rng)
+            scalars = self.host_scalars()
+            device = self.schedule.betas.device
+            batches = [MultiviewMultipromptDataModule.to_device(
+                {k: v for k, v in b.items() if k != "noise" and not isinstance(v, (list, str))},
+                device) for b in batch_list]
+            latent = torch.as_tensor(batch_list[0]["noise"], dtype=torch.float32).to(device)
+            if draws is None:
+                if generator is None:
+                    raise ValueError("train_step needs a generator or explicit draws")
+                draws = [self.draw_part(b, latent.shape, generator) for b in batches]
+            if len(draws) != n:
+                raise ValueError(f"{len(draws)} draws for {n} parts")
+            text_embeds = {k: v.to(device) for k, v in text_embeds.items()}
+            rank, world = get_rank(), get_world_size()
+            if world > 1:  # this rank's prompts, taken after every draw of the whole batch
+                n_prompts = latent.shape[0]
+                batches = [shard_batch(b, rank, world, n_prompts) for b in batches]
+                latent = shard_rows(latent, rank, world, n_prompts)
+                text_embeds = shard_batch(text_embeds, rank, world, n_prompts)
+                draws = [self._shard_draws(d, rank, world, n_prompts) for d in draws]
+            step = self._train_step_staged if cfg.auto_grad else self._train_step_monolithic
+            metrics = step(batches, [int(t) for t in ts], latent, text_embeds, scalars, draws)
+            if cfg.skip_nonfinite_grads:
+                metrics["skipped_nonfinite"] = self.optimizer.total_notfinite
+            self.global_step += 1
+            return metrics
 
     def step_cost_flops(self, batch_list: Sequence[Dict[str, Any]], text_embeds: Dict[str, Any],
                         generator: Optional[torch.Generator] = None) -> FlopCount:
