@@ -10,6 +10,8 @@ Float32 matmuls and cuDNN convolutions run with TF32 off, so the f32
 comparisons are against full-f32 PyTorch.
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -851,3 +853,148 @@ def test_a_span_entered_during_graph_capture_records_nothing(cuda):
         graph.replay()
         torch.cuda.synchronize()
     assert float(y.sum().item()) == 16.0
+
+
+# -- the student UNet as a piecewise CUDA graph (utils/cuda_graphs.py) -----------------
+
+# chip_smoke.py's small model: head size 64, so the joint self-attention and the 16²
+# cross-attention take the kernels and the 8² cross-attention the einsum route
+GRAPH_SG = dict(block_out_channels=(64, 128), layers_per_block=1, cross_attention_dim=64,
+                attention_head_dim=64, vae_block_out_channels=(32, 64), vae_layers_per_block=1,
+                output_dim=64)
+GRAPH_TEXT = dict(width=64, layers=2, heads=1, intermediate=128)
+GRAPH_KW = dict(latent_resolution=16, isosurface_resolution=64)
+
+
+def _graph_pipe():
+    from triplaneturbo_torch.models.clip_text import CLIPTextConfig
+    from triplaneturbo_torch.pipelines.triplaneturbo_text_to_3d import (
+        TriplaneTurboTextTo3DPipeline,
+    )
+    from triplaneturbo_torch.utils.weights import init_random_
+
+    pipe = TriplaneTurboTextTo3DPipeline.from_pretrained(
+        None, device="cuda", seed=0, space_generator_overrides=GRAPH_SG,
+        text_config=CLIPTextConfig(**GRAPH_TEXT), **GRAPH_KW)
+    with torch.no_grad():  # the adapters' `up` nonzero, so that every adapter adds
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for name, p in pipe.geometry.named_parameters():
+            if name.endswith((".up", "up.weight")):
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.05)
+    return pipe
+
+
+def _graph_latents(seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((1, 6, 16, 16, 4), generator=gen, device="cuda")
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def _eager(monkeypatch):
+    from triplaneturbo_torch.pipelines import triplaneturbo_text_to_3d as pl
+
+    monkeypatch.setattr(pl, "can_capture", lambda x: False)
+
+
+def test_piecewise_unet_matches_the_eager_call(cuda):
+    """Two calls of the graphed UNet with other latents, timesteps and text states
+    (the static buffers reused): ε within 1e-6 of the eager call's largest value; the
+    pieces are the attention calls plus one."""
+    from triplaneturbo_torch.utils import profiling
+
+    pipe = _graph_pipe()
+    with torch.no_grad():
+        for i, (prompt, t) in enumerate((("a hamburger", 999), ("a wooden chair", 499))):
+            text = pipe.encode_prompt([prompt])
+            lat = _graph_latents(i)
+            unet = pipe._graphed_unet(text, lat)
+            got = unet(lat, t).clone()
+            ref = pipe.geometry.denoise(lat, text, t)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all() and ref.abs().max() > 0
+            assert _rel(got, ref) <= 1e-6, (t, _rel(got, ref))
+        assert len(pipe._unet_graphs) == 1
+        profiling.clear()
+        with profiling.recording():
+            pipe.geometry.denoise(lat, text, t)
+        n_attention = sum(r.name == "flash_attention" for r in profiling.spans())
+        profiling.clear()
+    # a transformer block down, one in the middle, two up: a self- and a cross-attention
+    # call each (the middle's 8² cross-attention on the einsum route)
+    assert n_attention == 8
+    assert unet.graph.n_splits == n_attention
+    assert unet.graph.n_pieces == n_attention + 1
+
+
+def test_graphed_pipeline_returns_nothing_a_replay_rewrites(cuda, monkeypatch):
+    """A graphed call's outputs stay as they were after the next call, and the graphed
+    pipeline's x̂₀ and planes match the eager pipeline's."""
+    pipe = _graph_pipe()
+    out1 = pipe("a hamburger", latents=_graph_latents(1))
+    assert len(pipe._unet_graphs) == 1  # the first call captured
+    kept = {k: out1[k].clone() for k in ("latents", "space_cache")}
+    out2 = pipe("a wooden chair", latents=_graph_latents(2))
+    torch.cuda.synchronize()
+    for k, v in kept.items():
+        assert torch.equal(out1[k], v), k
+    assert not torch.equal(out2["latents"], out1["latents"])
+    _eager(monkeypatch)
+    ref = pipe("a wooden chair", latents=_graph_latents(2))
+    for k in ("latents", "space_cache"):
+        assert _rel(out2[k], ref[k]) <= 1e-6, (k, _rel(out2[k], ref[k]))
+
+
+def test_graphed_call_keeps_every_attention_span(cuda, monkeypatch):
+    """Under ``recording()`` a graphed call keeps as many ``flash_attention`` spans as
+    an eager one (the UNet's own spans go, they are in the graph) and counts its four
+    replays; under the benchmark's ``TracedWindow`` every mark has its marker kernel,
+    and the denoise stage's device-busy time is that of the eager call's (the
+    profiler sees a replay's kernels)."""
+    from port_bench.lib.trace import TracedWindow
+    from triplaneturbo_torch.utils import profiling
+
+    pipe = _graph_pipe()
+    lat = _graph_latents(4)
+    pipe("a hamburger", latents=lat)  # captures
+    torch.cuda.synchronize()
+
+    def call():
+        profiling.clear()
+        with profiling.recording():
+            pipe("a hamburger", latents=lat)
+        recs = profiling.spans()
+        profiling.clear()
+        names = Counter(r.name for r in recs)
+        counts = Counter()
+        for r in recs:
+            counts.update(r.counts)
+        return names, counts
+
+    def traced():
+        tw = TracedWindow(torch.device("cuda")).start()
+        try:
+            tw.begin()
+            pipe("a hamburger", latents=lat)
+            tw.end()
+        finally:
+            tw.stop()
+        return tw.summary()  # raises unless every mark has its marker kernel
+
+    graphed, g_counts = call()
+    g_trace = traced()
+    with monkeypatch.context() as m:
+        _eager(m)
+        eager, e_counts = call()
+        e_trace = traced()
+    assert graphed["flash_attention"] == eager["flash_attention"] == 4 * 8 + 1  # and the VAE
+    assert graphed["ddim_step"] == eager["ddim_step"] == 4
+    assert eager["unet.down"] == 4 and graphed["unet.down"] == 0
+    assert g_counts["unet_graph_calls"] == 4 and g_counts["unet_eager_calls"] == 0
+    assert e_counts["unet_graph_calls"] == 0 and e_counts["unet_eager_calls"] == 4
+    assert g_counts["syncs"] == e_counts["syncs"] - 4  # the timestep's uploads
+    g_busy, e_busy = g_trace.busy_in(["denoise"]), e_trace.busy_in(["denoise"])
+    assert g_trace.busy_in(["flash_attention"]) > 0
+    assert 0.7 * e_busy <= g_busy <= 1.3 * e_busy, (g_busy, e_busy)

@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import cuda_graphs as _cuda_graphs
 from ..utils import flops as _flops
 from ..utils.profiling import span
 from . import _build
@@ -368,7 +369,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
 
     The span ``flash_attention`` holds the whole op, either route and the copies
     to the kernels' layout included (its forward: a backward runs in autograd).
+
+    While a piecewise CUDA graph is captured (``utils/cuda_graphs.py``), the op is
+    where the graph breaks: the piece captured so far ends, the op runs eagerly in
+    its span, and the next piece reads its result from a contiguous ``[B, L, H, D]``
+    buffer, copied outside the span (the copy the caller's ``reshape`` of the
+    transposed result would make). Each replay runs the op so again.
     """
+    if _cuda_graphs.active is not None:
+        return _cuda_graphs.active.split(_attention, q, k, v)
+    return _attention(q, k, v)
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     with span("flash_attention"):
         B, L, H, D = q.shape
         Lk = k.shape[1]

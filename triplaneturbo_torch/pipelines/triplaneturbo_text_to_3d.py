@@ -32,8 +32,9 @@ from ..models.networks import MLPConfig, get_activation
 from ..models.schedulers import Schedule, SchedulerConfig, ddim_step, ddim_timesteps, make_schedule
 from ..models.tokenizer import CLIPTokenizer
 from ..ops.isosurface import ExtractedMesh, marching_cubes, marching_tets
+from ..utils.cuda_graphs import PiecewiseGraph, can_capture
 from ..utils.mesh import Mesh
-from ..utils.profiling import span, stage
+from ..utils.profiling import count, span, stage
 from ..utils.saving import save_obj
 from ..utils.weights import init_random_
 
@@ -89,6 +90,7 @@ class TriplaneTurboTextTo3DPipeline:
         self.schedule = schedule
         self.device = device
         self.material = get_activation(cfg.color_activation)
+        self._unet_graphs: Dict[tuple, _GraphedDenoise] = {}
 
     @classmethod
     def from_pretrained(cls, pretrained_model_name_or_path: Optional[str] = None, seed: int = 0,
@@ -156,15 +158,41 @@ class TriplaneTurboTextTo3DPipeline:
 
     def denoise_latents(self, text_embed: torch.Tensor, init_latents: torch.Tensor
                         ) -> torch.Tensor:
-        """The DDIM loop; returns the last step's x̂₀ (what gets decoded)."""
+        """The DDIM loop; returns the last step's x̂₀ (what gets decoded).
+
+        Where ``utils/cuda_graphs.py`` ``can_capture`` allows it (on the card, without
+        grad or a FLOP count), the student UNet replays as a piecewise CUDA graph, one a
+        shape of latents and text states, captured at the first call of that shape;
+        elsewhere it runs eagerly. Each step counts ``unet_graph_calls`` and
+        ``unet_eager_calls`` on its span. The DDIM update runs eagerly either way, so
+        nothing returned lies in a graph's memory."""
         cfg = self.cfg
+        unet = self._graphed_unet(text_embed, init_latents)
         latents = x0 = init_latents
         for t in ddim_timesteps(self.schedule, cfg.num_inference_steps):
             with span("ddim_step"):
-                eps = self.geometry.denoise(latents, text_embed, int(t))
+                count("unet_graph_calls", int(unet is not None))
+                count("unet_eager_calls", int(unet is None))
+                if unet is None:
+                    eps = self.geometry.denoise(latents, text_embed, int(t))
+                else:
+                    eps = unet(latents, int(t))
                 out = ddim_step(self.schedule, eps, int(t), latents, cfg.num_inference_steps)
             latents, x0 = out.prev_sample, out.pred_original_sample
         return x0
+
+    def _graphed_unet(self, text_embed: torch.Tensor, latents: torch.Tensor
+                      ) -> Optional["_GraphedDenoise"]:
+        """The graphed ``geometry.denoise`` at these shapes, its text states set, or
+        None where the UNet runs eagerly."""
+        if not can_capture(latents):
+            return None
+        key = (tuple(latents.shape), tuple(text_embed.shape), text_embed.dtype, latents.device)
+        unet = self._unet_graphs.get(key)
+        if unet is None:
+            unet = self._unet_graphs[key] = _GraphedDenoise(self.geometry, latents, text_embed)
+        unet.text.copy_(text_embed)
+        return unet
 
     def field_on_grid(self, space_cache_i: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """SDF [R³] and deformation [R³, 3] on the dense grid of one item."""
@@ -235,6 +263,29 @@ class TriplaneTurboTextTo3DPipeline:
             if return_dict:
                 return {"space_cache": space_cache, "latents": out_latents, "mesh": meshes}
             return meshes
+
+
+class _GraphedDenoise:
+    """``geometry.denoise`` at one shape as a :class:`PiecewiseGraph` over static
+    buffers: the latents (f32), the text states, the timestep (``long``, one a plane)
+    and ε, the output. A call copies the latents in, fills the timestep and replays
+    (capturing first, at the first call); the text states are set once a pipeline call.
+    """
+
+    def __init__(self, geometry: TriplaneGeometry, latents: torch.Tensor,
+                 text_embed: torch.Tensor):
+        B, P = latents.shape[:2]
+        self.latents = torch.empty_like(latents, memory_format=torch.contiguous_format)
+        self.text = torch.empty_like(text_embed, memory_format=torch.contiguous_format)
+        self.t = torch.empty(B * P, dtype=torch.long, device=latents.device)
+        self.graph = PiecewiseGraph(lambda: geometry.denoise(self.latents, self.text, self.t))
+
+    def __call__(self, latents: torch.Tensor, t: int) -> torch.Tensor:
+        self.latents.copy_(latents)
+        self.t.fill_(t)
+        if not self.graph.steps:
+            self.graph.capture()
+        return self.graph.replay()
 
 
 def export_obj(mesh: Mesh, save_path: str, save_normal: bool = False) -> List[str]:
