@@ -35,7 +35,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                key, D = 512 at 63/65/129) against the plain backward and from run
                to run bit for bit;
                the field-grid slab backward against autograd of the plain field at
-               R=160 (v1) and R=40 (v2). Times are CUDA-event means of calls
+               R=160 (v1) and R=40 (v2); the folded serving trunk's channels-last
+               GroupNorm(+SiLU) and bias(+residual) kernels (``ops/nhwc.py``) in bf16
+               at every shape of the trunk at B=1 (six planes) and at 48 planes (B=8)
+               at 256², within one bf16 rounding of each value of their plain
+               versions (GroupNorm also 2^-12 of the largest, for the sums' order
+               near zero), timed beside PyTorch's own ops. Times are CUDA-event means of calls
                through the wrapper, queued behind a spin kernel that outlasts the
                host's enqueueing, so that a kernel shorter than its wrapper's host
                time is still timed on the device.
@@ -85,9 +90,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                text tower, retrofitted VAE, R=160 marching cubes) in bf16 on random
                weights from a seed: one warm-up prompt and three timed prompts through
                ``__call__`` with every launch count reset just before the timed ones
-               and read just after, an exported OBJ, then one more ``__call__`` prompt under
+               and read just after (the GroupNorm and bias kernels' host counts see
+               only the eagerly run decode, as the UNet replays its CUDA graph), an
+               exported OBJ, then one more ``__call__`` prompt under
                ``torch.profiler``: device-busy ms of each stage (the pipeline's
-               ``record_function`` ranges), the idle share and the heaviest kernels;
+               ``record_function`` ranges), the idle share, the heaviest kernels, and
+               the GroupNorm and bias kernels' device launches (graph replays included);
                then one more prompt under ``utils/flops.py`` ``count_flops`` (its FLOPs
                by stage, operator and kernel, for the ``flops`` line below).
 7. locon    -- the per-plane LoCon (``locon_type="hexa_v1"``): the small kernel-taking
@@ -227,6 +235,43 @@ ATTN_SHAPES = [
 ]
 K1_LAUNCHES_PER_PROMPT = sum(s[-1] for s in ATTN_SHAPES)  # 101
 K2_LAUNCHES_PER_PROMPT = 1
+# The channels-last GroupNorm(+SiLU) and bias(+residual) kernels of the folded serving
+# trunk (ops/nhwc.py). A student UNet pass runs 61 norms (two in each of 22 resnets, 16
+# transformers' and its norm_out) and 30 bias adds (one a resnet, conv_in, 3 down- and 3
+# upsamplers, conv_out); a decode 30 norms (two in each of 14 resnets, the mid
+# attention's and conv_norm_out) and 19 bias adds (one a resnet, conv_in, 3 upsamplers,
+# the retrofit conv). After the warm-up prompt the UNet replays its CUDA graph, so the
+# host's counts see only the decode; the device's (the profiler's) see the whole prompt.
+SERVE_STEPS = 4
+GN_PER_UNET, GN_PER_DECODE = 61, 30
+BIAS_PER_UNET, BIAS_PER_DECODE = 30, 19
+K3_LAUNCHES_PER_PROMPT = GN_PER_DECODE  # group_norm_act, host count
+K4_LAUNCHES_PER_PROMPT = BIAS_PER_DECODE  # bias_add, host count
+K3_DEVICE_PER_PROMPT = SERVE_STEPS * GN_PER_UNET + GN_PER_DECODE  # 274
+K4_DEVICE_PER_PROMPT = SERVE_STEPS * BIAS_PER_UNET + BIAS_PER_DECODE  # 139
+NHWC_KERNELS = {"group_norm_act": ("group_norm_partial", "group_norm_finalize",
+                                   "group_norm_apply"),
+                "bias_add": ("bias_add_kernel",)}
+# Every GroupNorm of the folded serving trunk at B=1 (six planes): (C, H, W, eps, silu);
+# the UNet's at 32² latents, the student decoder's up to 256² (48 planes, B=8, there too)
+NHWC_GN_SHAPES = [(320, 16, 16, 1e-5, True), (320, 32, 32, 1e-6, False),
+                  (320, 32, 32, 1e-5, True), (640, 8, 8, 1e-5, True),
+                  (640, 16, 16, 1e-6, False), (640, 16, 16, 1e-5, True),
+                  (640, 32, 32, 1e-5, True), (960, 16, 16, 1e-5, True),
+                  (960, 32, 32, 1e-5, True), (1280, 4, 4, 1e-6, False),
+                  (1280, 4, 4, 1e-5, True), (1280, 8, 8, 1e-6, False),
+                  (1280, 8, 8, 1e-5, True), (1280, 16, 16, 1e-5, True),
+                  (1920, 8, 8, 1e-5, True), (1920, 16, 16, 1e-5, True),
+                  (2560, 4, 4, 1e-5, True), (2560, 8, 8, 1e-5, True),
+                  (128, 256, 256, 1e-6, True), (256, 128, 128, 1e-6, True),
+                  (256, 256, 256, 1e-6, True), (512, 32, 32, 1e-6, False),
+                  (512, 32, 32, 1e-6, True), (512, 64, 64, 1e-6, True),
+                  (512, 128, 128, 1e-6, True)]
+# every conv output of the trunk whose bias the kernel adds: (C, H, W)
+NHWC_BIAS_SHAPES = [(320, 32, 32), (640, 16, 16), (1280, 8, 8), (1280, 4, 4), (4, 32, 32),
+                    (512, 32, 32), (512, 128, 128), (256, 256, 256), (128, 256, 256),
+                    (64, 256, 256)]
+NHWC_MAIN = (6, 256, 256, 256)  # (planes, C, H, W): the kernels line's shape
 # Training attention sites at two prompts: (site, BH, L, Lk, D, launches per UNet + VAE pass).
 TRAIN_PROMPTS = 2
 TRAIN_ATTN_SHAPES = [(site, BH * TRAIN_PROMPTS, L, Lk, D, n // 4 if D == 64 else 1)
@@ -753,6 +798,123 @@ def field_grid_backward_case(R, C, concat, gen):
     return row
 
 
+def group_norm_case(N, C, H, W, eps, silu, gen):
+    """The channels-last GroupNorm(+SiLU) kernels at one trunk shape, with the bf16 scale
+    and shift a bf16 model stores and, where the UNet's norm2 takes one, an f32 shift per
+    sample and channel: against the plain version, within 2^-7 of each value plus 2^-12
+    of the largest; timed beside the plain version and PyTorch's GroupNorm + SiLU."""
+    import torch
+    import torch.nn.functional as F
+    from triplaneturbo_torch.ops import nhwc
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * s
+
+    # channels-last bf16, offset from zero (a variance taken as E[x²] - E[x]² would cancel)
+    x = (rnd(N, H, W, C, s=3.0) + 20.0).to(torch.bfloat16).permute(0, 3, 1, 2)
+    w = (rnd(C) + 1.0).to(torch.bfloat16)
+    b = rnd(C, s=0.1).to(torch.bfloat16)
+    shifts = [None] + ([rnd(N, C)] if silu and eps == 1e-5 else [])
+    worst, err_max = 0.0, 0.0
+    for shift in shifts:
+        before = nhwc.LAUNCHES
+        got = nhwc.group_norm_act(x, w, b, 32, eps, silu, shift)
+        torch.cuda.synchronize()
+        check(nhwc.LAUNCHES == before + 1, "group_norm_act launched no kernel")
+        check(got.is_contiguous(memory_format=torch.channels_last), "group_norm_act: layout")
+        ref = nhwc.group_norm_act_reference(x, w, b, 32, eps, silu, shift).float()
+        err = (got.float() - ref).abs()
+        tol = ref.abs() * 2.0 ** -7 + ref.abs().max() * 2.0 ** -12
+        check(bool(torch.isfinite(got).all()), "group_norm_act: non-finite output")
+        worst = max(worst, (err / tol).max().item())
+        err_max = max(err_max, err.max().item())
+        del got, ref, err, tol
+    site = f"{N}x{C}x{H}x{W} eps {eps:g}{' + SiLU' if silu else ''}"
+    check(worst <= 1.0, f"group_norm_act {site}: error {worst} times the tolerance")
+    iters = 10 if N * C * H * W >= 1 << 28 else 50
+    ms = cuda_ms(lambda: nhwc.group_norm_act(x, w, b, 32, eps, silu), iters)
+    plain_ms = cuda_ms(lambda: nhwc.group_norm_act_reference(x, w, b, 32, eps, silu),
+                       max(iters // 5, 3), warmup=1)
+
+    def library():
+        y = F.group_norm(x, 32, w, b, eps)
+        return F.silu(y) if silu else y
+
+    lib_ms = cuda_ms(library, iters)
+    n = x.numel()
+    # the least traffic: the input read once and the output written once
+    bound_ms, bound_by = bound(8.0 * n, 2 * n * x.element_size(), "float32")
+    row = {"phase": "kernel_case", "kernel": "group_norm_act", "site": site,
+           "dtype": "bfloat16", "N": N, "C": C, "H": H, "W": W,
+           "main": (N, C, H, W) == NHWC_MAIN and silu, "shifts": len(shifts),
+           "max_abs_err": err_max, "err_over_tol": worst, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(row)
+    return row
+
+
+def bias_add_case(N, C, H, W, gen):
+    """The channels-last bias(+residual) add at one trunk shape, with and without the
+    residual: against the plain version (f32 sum rounded once) within 2^-8 of each value;
+    the residual form timed beside the plain version and PyTorch's two adds."""
+    import torch
+    from triplaneturbo_torch.ops import nhwc
+
+    def rnd(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    y0 = rnd(N, H, W, C).to(torch.bfloat16).permute(0, 3, 1, 2)
+    r = rnd(N, H, W, C).to(torch.bfloat16).permute(0, 3, 1, 2)
+    bias = rnd(C)
+    worst, err_max = 0.0, 0.0
+    for residual in (None, r):
+        y = y0.clone(memory_format=torch.channels_last)
+        ref = nhwc.bias_add_reference(y, bias, residual).float()
+        before = nhwc.LAUNCHES_BIAS
+        got = nhwc.bias_add(y, bias, residual)
+        torch.cuda.synchronize()
+        check(nhwc.LAUNCHES_BIAS == before + 1 and got.data_ptr() == y.data_ptr(),
+              "bias_add launched no kernel or did not write into its input")
+        err = (got.float() - ref).abs()
+        tol = ref.abs() * 2.0 ** -8
+        check(bool((err <= tol).all()),
+              f"bias_add {N}x{C}x{H}x{W}: max abs err {err.max().item()}")
+        worst = max(worst, (err / tol.clamp_min(torch.finfo(torch.float32).tiny)).max().item())
+        err_max = max(err_max, err.max().item())
+        del ref, err, tol
+    site = f"{N}x{C}x{H}x{W} + residual"
+    y = y0.clone(memory_format=torch.channels_last)
+    iters = 10 if N * C * H * W >= 1 << 28 else 50
+    ms = cuda_ms(lambda: nhwc.bias_add(y, bias, r), iters)
+    plain_ms = cuda_ms(lambda: nhwc.bias_add_reference(y, bias, r), max(iters // 5, 3),
+                       warmup=1)
+    b16 = bias.to(torch.bfloat16)[None, :, None, None]
+    lib_ms = cuda_ms(lambda: y + b16 + r, iters)
+    n = y.numel()
+    bound_ms, bound_by = bound(2.0 * n, 3 * n * y.element_size(), "float32")
+    row = {"phase": "kernel_case", "kernel": "bias_add", "site": site, "dtype": "bfloat16",
+           "N": N, "C": C, "H": H, "W": W, "main": (N, C, H, W) == NHWC_MAIN,
+           "max_abs_err": err_max, "err_over_tol": worst, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(row)
+    return row
+
+
+def phase_nhwc(gen):
+    import torch
+
+    rows = []
+    for C, H, W, eps, silu in NHWC_GN_SHAPES:
+        for N in (6, 48) if H == 256 else (6,):
+            rows.append(group_norm_case(N, C, H, W, eps, silu, gen))
+            torch.cuda.empty_cache()
+    for C, H, W in NHWC_BIAS_SHAPES:
+        for N in (6, 48) if H == 256 and C == 256 else (6,):
+            rows.append(bias_add_case(N, C, H, W, gen))
+            torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels():
     import torch
 
@@ -785,6 +947,7 @@ def phase_kernels():
     rows.append(field_grid_backward_case(160, 32, False, gen))
     rows.append(field_grid_backward_case(40, 32, True, gen))
     torch.cuda.empty_cache()
+    rows += phase_nhwc(gen)
     return rows
 
 
@@ -899,6 +1062,7 @@ def phase_pipeline():
     from torch.profiler import profile as profiler
     from triplaneturbo_torch.ops import field_grid as fg
     from triplaneturbo_torch.ops import flash_attention as fa
+    from triplaneturbo_torch.ops import nhwc
     from triplaneturbo_torch.pipelines.triplaneturbo_text_to_3d import (
         TriplaneTurboTextTo3DPipeline,
         export_obj,
@@ -925,11 +1089,14 @@ def phase_pipeline():
         if i == 1:
             fa.LAUNCHES = 0
             fg.LAUNCHES = 0
+            nhwc.LAUNCHES = 0
+            nhwc.LAUNCHES_BIAS = 0
         t = time.perf_counter()
         outs.append(pipe(p, generator=gen))
         torch.cuda.synchronize()
         prompt_ms.append((time.perf_counter() - t) * 1e3)
-    launches = {"flash_attn_fwd": fa.LAUNCHES, "field_grid": fg.LAUNCHES}
+    launches = {"flash_attn_fwd": fa.LAUNCHES, "field_grid": fg.LAUNCHES,
+                "group_norm_act": nhwc.LAUNCHES, "bias_add": nhwc.LAUNCHES_BIAS}
     peak_bytes = torch.cuda.max_memory_allocated()
 
     n = len(prompts) - 1
@@ -939,6 +1106,10 @@ def phase_pipeline():
     check(launches["field_grid"] == K2_LAUNCHES_PER_PROMPT * n,
           f"field_grid launched {launches['field_grid']} times for {n} prompts, "
           f"expected {K2_LAUNCHES_PER_PROMPT * n}")
+    for name, k in (("group_norm_act", K3_LAUNCHES_PER_PROMPT),
+                    ("bias_add", K4_LAUNCHES_PER_PROMPT)):
+        check(launches[name] == k * n, f"{name} launched {launches[name]} times (host count) "
+              f"for {n} prompts, expected {k * n}")
     counts = []
     for out in outs:
         check(tuple(out["latents"].shape) == (1, 6, 32, 32, 4), "latents shape")
@@ -973,6 +1144,13 @@ def phase_pipeline():
                                 if symbol in e.key) / 1e3
                       for name, symbol in (("flash_attn_fwd", "flash_fwd_kernel"),
                                            ("field_grid", "field_grid_kernel"))}
+    cuda = torch.autograd.DeviceType.CUDA
+    device_kernels = {e.key: (e.count, e.self_device_time_total / 1e3)
+                      for e in prof.key_averages() if e.device_type == cuda}
+    nhwc_device_launches = {}
+    for name, symbols in NHWC_KERNELS.items():
+        kernel_busy_ms[name] = sum(device_kernels.get(k, (0, 0.0))[1] for k in symbols)
+        nhwc_device_launches[name] = {k: device_kernels.get(k, (0, 0.0))[0] for k in symbols}
     timed = prompt_ms[1:]
     median_ms = sorted(timed)[len(timed) // 2]
     emit({"phase": "pipeline", "config": "SD-2.1 student UNet + OpenCLIP-H text + retrofit "
@@ -986,7 +1164,13 @@ def phase_pipeline():
           "top_kernels": prompt_top,
           "launches": launches,
           "launches_per_prompt": {k: v / n for k, v in launches.items()},
+          "device_launches_per_prompt": nhwc_device_launches,
           "meshes": counts, "obj": obj, "max_memory_allocated_bytes": peak_bytes})
+    for name, k in (("group_norm_act", K3_DEVICE_PER_PROMPT),
+                    ("bias_add", K4_DEVICE_PER_PROMPT)):
+        check(all(c == k for c in nhwc_device_launches[name].values()),
+              f"{name}: device launches {nhwc_device_launches[name]} in the profiled prompt, "
+              f"expected {k} of each")
     # every kernel of the prompt, the hand-written ones too, falls in a stage's range
     check(stage_share >= 0.95, f"the stage ranges hold only {stage_share:.3f} of the device time")
     return launches, pipe, {"prompt_ms_median": median_ms, "prompt_device_busy_ms": prompt_busy_ms,
@@ -3361,6 +3545,20 @@ def kernels_line(rows, serving, training):
         })
         if name == "field_grid":
             out[-1].update(bound_f32_ms=r["bound_f32_ms"], kernel_ms=r["kernel_ms"])
+    # the folded serving trunk's channels-last kernels: no TPU kernel stands for them
+    # (XLA fuses both into their neighbours); their main shape is the decoder's widest
+    for name in NHWC_KERNELS:
+        mine = [r for r in rows if r["kernel"] == name]
+        r = [x for x in mine if x["main"]][0]
+        by_path = {"serving": serving.get(name, 0), "training": 0}
+        out.append({
+            "name": name, "route": "cuda", "source": "triplaneturbo_torch/ops/nhwc.py",
+            "replaces": None, "launches": by_path["serving"], "launches_by_path": by_path,
+            "max_abs_err": max(x["max_abs_err"] for x in mine),
+            "err_over_tol": max(x["err_over_tol"] for x in mine),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["site"],
+        })
     return {"kernels": out}
 
 
@@ -3399,7 +3597,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_parallel()
-    for name, count in {**training, **{k: serving[k] for k in ("flash_attn_fwd", "field_grid")}}.items():
+    serving_kernels = ("flash_attn_fwd", "field_grid", *NHWC_KERNELS)
+    for name, count in {**training, **{k: serving[k] for k in serving_kernels}}.items():
         check(count > 0, f"{name} was launched no time on its main path")
     emit(kernels_line(rows, serving, training))
     print(info["nvidia_smi"], flush=True)

@@ -894,6 +894,16 @@ def _rel(a, b):
 
 
 def _eager(monkeypatch):
+    """The UNet eager, the adapters still folded."""
+    from triplaneturbo_torch.pipelines import triplaneturbo_text_to_3d as pl
+
+    monkeypatch.setattr(pl.TriplaneTurboTextTo3DPipeline, "_graphed_unet",
+                        lambda self, text, latents: None)
+
+
+def _unfolded(monkeypatch):
+    """The route of a call without ``can_capture``: the UNet eager, the adapters as
+    they are."""
     from triplaneturbo_torch.pipelines import triplaneturbo_text_to_3d as pl
 
     monkeypatch.setattr(pl, "can_capture", lambda x: False)
@@ -998,3 +1008,153 @@ def test_graphed_call_keeps_every_attention_span(cuda, monkeypatch):
     g_busy, e_busy = g_trace.busy_in(["denoise"]), e_trace.busy_in(["denoise"])
     assert g_trace.busy_in(["flash_attention"]) > 0
     assert 0.7 * e_busy <= g_busy <= 1.3 * e_busy, (g_busy, e_busy)
+
+
+# -- the frozen adapters folded into the bf16 weights (models/lora.py Fold) -------------
+
+
+def test_a_weight_reload_between_two_graphed_calls_shows(cuda, monkeypatch):
+    """Adapter and base weights written in place (as the benchmark's ``p.copy_`` and
+    ``load_state_dict`` do) between two graphed, folded calls: the second call sees them
+    (refolded in place, the graph kept) and matches the eager folded call bit for bit
+    and the unfolded eager route in f32 (1e-3 of the largest value, chip_smoke.py's
+    SMALL_REL_TOL: other summation orders, amplified by the DDIM step's x0)."""
+    pipe = _graph_pipe()
+    lat = _graph_latents(5)
+    first = pipe("a hamburger", latents=lat)
+    graph = next(iter(pipe._unet_graphs.values())).graph
+    kept = {k: first[k].clone() for k in ("latents", "space_cache")}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    with torch.no_grad():
+        for name, p in pipe.geometry.space_generator.named_parameters():
+            if name.endswith(("up", "up.weight", "conv.weight")):
+                p.mul_(1.0 + 0.5 * torch.rand(p.shape, generator=gen, device="cuda"))
+    second = pipe("a hamburger", latents=lat)
+    assert next(iter(pipe._unet_graphs.values())).graph is graph  # not captured again
+    for k, v in kept.items():
+        assert _rel(second[k], v) > 1e-3, k
+    with monkeypatch.context() as m:
+        _eager(m)
+        eager = pipe("a hamburger", latents=lat)
+    with monkeypatch.context() as m:
+        _unfolded(m)
+        plain = pipe("a hamburger", latents=lat)
+    for k in ("latents", "space_cache"):
+        assert _rel(second[k], eager[k]) <= 1e-6, (k, _rel(second[k], eager[k]))
+        assert _rel(second[k], plain[k]) <= 1e-3, (k, _rel(second[k], plain[k]))
+
+
+def test_full_width_folded_graphed_pipeline_against_the_unfolded_route(cuda, monkeypatch):
+    """The full-width bf16 student, folded and graphed, against its unfolded eager route
+    and both against the same weights in f32 (unfolded, eager, TF32 off): x̂₀ and the
+    planes. The fold rounds each summed weight to bf16 once where the unfolded route
+    rounds the adapter's f32 output before its add, so the folded route may sit at most
+    twice as far from the f32 one as the unfolded route does."""
+    from triplaneturbo_torch.pipelines.triplaneturbo_text_to_3d import (
+        TriplaneTurboTextTo3DPipeline,
+    )
+
+    pipe = TriplaneTurboTextTo3DPipeline.from_pretrained(None, device="cuda",
+                                                         dtype_str="bfloat16", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    with torch.no_grad():  # the adapters' `up` nonzero, so that every adapter adds
+        for name, p in pipe.geometry.named_parameters():
+            if name.endswith((".up", "up.weight")):
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
+    lat = torch.randn((1, 6, 32, 32, 4), generator=gen, device="cuda")
+    prompt = "a delicious hamburger"
+    pipe(prompt, latents=lat)  # captures and folds
+    folded = pipe(prompt, latents=lat)
+    assert pipe._fold is not None and len(pipe._fold.sites) > 0
+    with monkeypatch.context() as m:
+        _unfolded(m)
+        plain = pipe(prompt, latents=lat)
+        ref = TriplaneTurboTextTo3DPipeline.from_pretrained(None, device="cuda",
+                                                            dtype_str="float32", seed=0)
+        ref.geometry.load_state_dict(pipe.geometry.state_dict())
+        ref.text_encoder.load_state_dict(pipe.text_encoder.state_dict())
+        want = ref(prompt, latents=lat)
+    gaps = {}
+    for k in ("latents", "space_cache"):
+        gaps[k] = (_rel(folded[k], want[k]), _rel(plain[k], want[k]), _rel(folded[k], plain[k]))
+        assert torch.isfinite(folded[k]).all(), k
+    print("folded, unfolded against f32; folded against unfolded:", gaps)
+    for k, (f, u, _) in gaps.items():
+        assert f <= 2.0 * u, (k, gaps[k])
+
+
+# every GroupNorm of the serving trunk at B=1 (six planes): (C, H, W, eps, silu); the
+# UNet's at 32² latents, the student decoder's up to 256²
+GN_TRUNK = [(320, 16, 16, 1e-5, True), (320, 32, 32, 1e-6, False), (320, 32, 32, 1e-5, True),
+            (640, 8, 8, 1e-5, True), (640, 16, 16, 1e-6, False), (640, 16, 16, 1e-5, True),
+            (640, 32, 32, 1e-5, True), (960, 16, 16, 1e-5, True), (960, 32, 32, 1e-5, True),
+            (1280, 4, 4, 1e-6, False), (1280, 4, 4, 1e-5, True), (1280, 8, 8, 1e-6, False),
+            (1280, 8, 8, 1e-5, True), (1280, 16, 16, 1e-5, True), (1920, 8, 8, 1e-5, True),
+            (1920, 16, 16, 1e-5, True), (2560, 4, 4, 1e-5, True), (2560, 8, 8, 1e-5, True),
+            (128, 256, 256, 1e-6, True), (256, 128, 128, 1e-6, True),
+            (256, 256, 256, 1e-6, True), (512, 32, 32, 1e-6, False), (512, 32, 32, 1e-6, True),
+            (512, 64, 64, 1e-6, True), (512, 128, 128, 1e-6, True),
+            # fewer channels than a tile (the small model's decoder) and a partial tile
+            (32, 128, 128, 1e-6, True), (96, 16, 16, 1e-5, False)]
+
+
+@pytest.mark.parametrize("C,H,W,eps,silu", GN_TRUNK)
+def test_group_norm_act_kernel_matches_plain(cuda, C, H, W, eps, silu):
+    """The channels-last GroupNorm(+SiLU) kernels against their plain version (f32
+    GroupNorm, rounded once): within one bf16 rounding of each value (2^-7 of it) plus
+    2^-12 of the largest, for the sums' other order near zero. Six planes at every trunk
+    shape, 48 (B=8) at the largest; the input offset from zero, so that a variance taken
+    as E[x²] - E[x]² would cancel; with a shift per sample and channel (a conv's bias and
+    the time embedding) where the block's norm2 takes one, and a shift per channel at the
+    largest; f32 scale and shift, and also the bf16 ones a bf16 model stores (which the
+    serving trunk passes as they are)."""
+    from triplaneturbo_torch.ops import nhwc as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(C + H)
+    for N in (6, 48) if H == 256 else (6,):
+        x = (_randn(gen, N, H, W, C, scale=3.0) + 20.0).to(torch.bfloat16).permute(0, 3, 1, 2)
+        w = _randn(gen, C) + 1.0
+        b = _randn(gen, C, scale=0.1)
+        cases = [(None, w, b), (None, w.bfloat16(), b.bfloat16())]
+        if silu:
+            cases.append((_randn(gen, N, C), w, b))
+        if H == 256:
+            cases.append((_randn(gen, C, scale=5.0), w, b))
+        for shift, w_, b_ in cases:
+            before = gn.LAUNCHES
+            got = gn.group_norm_act(x, w_, b_, 32, eps, silu, shift)
+            torch.cuda.synchronize()
+            assert gn.LAUNCHES == before + 1
+            assert got.dtype == torch.bfloat16 and got.shape == x.shape
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            ref = gn.group_norm_act_reference(x, w_, b_, 32, eps, silu, shift).float()
+            err = (got.float() - ref).abs()
+            tol = ref.abs() * 2.0 ** -7 + ref.abs().max() * 2.0 ** -12
+            assert bool((err <= tol).all()), (N, err.max().item(), ref.abs().max().item())
+
+
+# every conv output of the serving trunk whose bias the kernel adds: (C, H, W), six planes
+BIAS_TRUNK = [(320, 32, 32), (640, 16, 16), (1280, 8, 8), (1280, 4, 4), (4, 32, 32),
+              (512, 32, 32), (512, 128, 128), (256, 256, 256), (128, 256, 256), (64, 256, 256),
+              (96, 16, 16)]
+
+
+@pytest.mark.parametrize("C,H,W", BIAS_TRUNK)
+def test_bias_add_kernel_matches_plain(cuda, C, H, W):
+    """The channels-last bias(+residual) add against its plain version (f32 sum rounded
+    once): within one bf16 rounding of each value; written into its input."""
+    from triplaneturbo_torch.ops import nhwc
+
+    gen = torch.Generator(device="cuda").manual_seed(C * 3 + H)
+    for residual in (False, True):
+        y = _randn(gen, 6, H, W, C, dtype=torch.bfloat16).permute(0, 3, 1, 2)
+        b = _randn(gen, C)
+        r = (_randn(gen, 6, H, W, C, dtype=torch.bfloat16).permute(0, 3, 1, 2)
+             if residual else None)
+        ref = nhwc.bias_add_reference(y, b, r).float()
+        before = nhwc.LAUNCHES_BIAS
+        got = nhwc.bias_add(y, b, r)
+        torch.cuda.synchronize()
+        assert nhwc.LAUNCHES_BIAS == before + 1 and got.data_ptr() == y.data_ptr()
+        err = (got.float() - ref).abs()
+        assert bool((err <= ref.abs() * 2.0 ** -8).all()), err.max().item()

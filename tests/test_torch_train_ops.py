@@ -443,6 +443,22 @@ def test_trainable_set_equals_the_jax_mask_leaf_for_leaf():
     assert not is_trainable("space_generator.unet.conv_in.conv.weight")
 
 
+def test_every_trainable_leaf_of_a_bf16_student_is_f32():
+    """The recipe keeps every trainable in f32, and the JAX package stores the bf16
+    student's so (flax's ``param_dtype``): the retrofit conv too, cast to bf16 only in
+    its forward."""
+    geo = TriplaneGeometry(TriplaneGeometryConfig(
+        space_generator=SpaceGeneratorConfig(dtype_str="bfloat16", **TINY_SG)))
+    names = mark_trainable(geo)
+    params = dict(geo.named_parameters())
+    assert any("retrofit" in n for n in names)
+    assert {n: params[n].dtype for n in names} == {n: torch.float32 for n in names}
+    assert params["space_generator.unet.conv_in.conv.weight"].dtype == torch.bfloat16
+    z = torch.randn(6, 4, 8, 8)
+    with torch.no_grad():
+        assert geo.space_generator.vae.decoder(z).dtype == torch.float32
+
+
 def test_mark_trainable_rounds_frozen_f32_leaves_to_bf16_values():
     geo = TriplaneGeometry(TriplaneGeometryConfig(
         space_generator=SpaceGeneratorConfig(dtype_str="bfloat16", **TINY_SG)))

@@ -9,7 +9,8 @@ LoRA placement, as in the JAX package:
   hexa:    the q/k/v adapters see the projection input; the out adapter sees
            the base out-projection output, regrouped ``[N/P, P, L, C]``;
   vanilla: every adapter sees the projection input.
-In joint mode the ``(N/G, G·L, C)`` reshape comes after the adapters.
+In joint mode the ``(N/G, G·L, C)`` reshape comes after the adapters. Folded
+(``lora.Fold``), each projection is one linear layer, per plane for hexa.
 Flax's defaults carry over: LayerNorm eps 1e-6, and GEGLU uses the tanh GELU.
 """
 
@@ -23,7 +24,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import attention as attention_dispatch
-from .lora import LoRAAdapter, PlaneLoRAAdapter
+from .lora import (
+    FoldSite,
+    LoRAAdapter,
+    PlaneLoRAAdapter,
+    fold_lora,
+    fold_plane_lora,
+    plane_linear,
+)
+from .unet_blocks import GroupNorm
 
 
 @dataclass(frozen=True)
@@ -44,7 +53,7 @@ class AdapterSpec:
 NO_ADAPTERS = AdapterSpec()
 
 
-class Attention(nn.Module):
+class Attention(FoldSite, nn.Module):
     """Multi-head attention with optional plane LoRA and joint-token mode."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
@@ -78,8 +87,25 @@ class Attention(nn.Module):
         elif self.lora_type not in ("none", None):
             raise ValueError(f"Unknown lora type {self.lora_type}")
 
-    def _with_lora(self, base: nn.Linear, lora: Optional[nn.Module],
-                   x: torch.Tensor) -> torch.Tensor:
+    @property
+    def foldable(self) -> bool:
+        return self.lora_type in ("vanilla", "basic", "hexa_v1")
+
+    def fold_weights(self):
+        """(weight, bias) of q, k, v and out, flat: ``[out, in]`` weights for a
+        vanilla LoRA, per-plane ``[P, in, out]`` for hexa."""
+        pairs = ((self.to_q, self.lora_q), (self.to_k, self.lora_k),
+                 (self.to_v, self.lora_v), (self.to_out, self.lora_out))
+        if self.lora_type == "hexa_v1":
+            return sum((fold_plane_lora(base, lora, on_output=base is self.to_out)
+                        for base, lora in pairs), ())
+        return sum((fold_lora(base, lora) for base, lora in pairs), ())
+
+    def _with_lora(self, base: nn.Linear, lora: Optional[nn.Module], x: torch.Tensor,
+                   folded: Optional[tuple] = None) -> torch.Tensor:
+        if folded is not None:
+            w, b = folded
+            return plane_linear(x, w, b) if w.ndim == 3 else F.linear(x, w, b)
         y = base(x)
         if self.lora_type in ("vanilla", "basic"):
             return y + lora(x)
@@ -94,9 +120,11 @@ class Attention(nn.Module):
         inner = self.heads * self.dim_head
         N, L, _ = hidden_states.shape
         ctx = hidden_states if encoder_hidden_states is None else encoder_hidden_states
-        q = self._with_lora(self.to_q, getattr(self, "lora_q", None), hidden_states)
-        k = self._with_lora(self.to_k, getattr(self, "lora_k", None), ctx)
-        v = self._with_lora(self.to_v, getattr(self, "lora_v", None), ctx)
+        f = self.folded_now()
+        fq, fk, fv, fo = (None,) * 4 if f is None else (f[0:2], f[2:4], f[4:6], f[6:8])
+        q = self._with_lora(self.to_q, getattr(self, "lora_q", None), hidden_states, fq)
+        k = self._with_lora(self.to_k, getattr(self, "lora_k", None), ctx, fk)
+        v = self._with_lora(self.to_v, getattr(self, "lora_v", None), ctx, fv)
 
         joint = not self.is_cross and self.adapters.joint_self_attention
         if joint:
@@ -113,6 +141,8 @@ class Attention(nn.Module):
         if joint:
             attn_out = attn_out.reshape(N, L, inner)
 
+        if fo is not None:
+            return self._with_lora(self.to_out, None, attn_out, fo)
         out = self.to_out(attn_out)
         if self.lora_type in ("vanilla", "basic"):
             out = out + self.lora_out(attn_out)
@@ -175,7 +205,7 @@ class Transformer2D(nn.Module):
         self.depth = depth
         # the JAX module's own group rule (not _n_groups): 32 when it divides C, else 1
         groups = min(32, C) if C % min(32, C) == 0 else 1
-        self.norm = nn.GroupNorm(groups, C, eps=1e-6, dtype=dtype)
+        self.norm = GroupNorm(groups, C, eps=1e-6, dtype=dtype)
         self.proj_in = nn.Linear(C, inner, dtype=dtype)
         for i in range(depth):
             self.add_module(f"transformer_blocks_{i}", BasicTransformerBlock(

@@ -23,6 +23,7 @@ from .attention import NO_ADAPTERS, AdapterSpec, Transformer2D
 from .unet_blocks import (
     AdaptedConv,
     Downsample2D,
+    GroupNorm,
     ResnetBlock2D,
     Upsample2D,
     _n_groups,
@@ -118,7 +119,7 @@ class UNet2DConditionModel(nn.Module):
                     ch, locon_type=cfg.locon_type, locon_rank=cfg.locon_rank,
                     n_planes=cfg.adapters.n_planes, dtype=dtype))
 
-        self.conv_norm_out = nn.GroupNorm(_n_groups(32, ch0), ch0, eps=1e-5, dtype=dtype)
+        self.conv_norm_out = GroupNorm(_n_groups(32, ch0), ch0, eps=1e-5, dtype=dtype)
         self.conv_out = AdaptedConv(ch0, cfg.out_channels, dtype=dtype)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
@@ -168,7 +169,7 @@ class UNet2DConditionModel(nn.Module):
                 if i < n_blocks - 1:
                     h = getattr(self, f"up_{i}_upsample")(h)
 
-        h = self.conv_out(F.silu(self.conv_norm_out(h)))
+        h = self.conv_out(self.conv_norm_out(h, silu=True))
         return h.permute(0, 2, 3, 1).float()
 
 

@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .lora import LoConAdapter, PlaneLoConAdapter
+from ..ops.nhwc import bias_add, group_norm_act
+from .lora import FoldSite, LoConAdapter, PlaneLoConAdapter, bias_sum, fold_locon
 
 
 def _n_groups(groups: int, channels: int) -> int:
@@ -52,11 +53,33 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool 
     return torch.cat([sin, cos], dim=-1)
 
 
-class AdaptedConv(nn.Module):
+class GroupNorm(FoldSite, nn.GroupNorm):
+    """``nn.GroupNorm`` that can take the SiLU after it (``silu``). Folded
+    (``lora.Fold``), the channels-last kernels of ``ops/nhwc.py`` on its own scale and
+    shift, which also take a per-channel ``shift`` of the input (the bias of the conv
+    before, left out of that conv)."""
+
+    def fold_weights(self):
+        return self.weight, self.bias
+
+    def forward(self, x: torch.Tensor, silu: bool = False,
+                shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+        folded = self.folded_now()
+        if folded is not None:
+            return group_norm_act(x, *folded, self.num_groups, self.eps, silu, shift)
+        if shift is not None:
+            raise ValueError("a shift is taken only while the fold is engaged")
+        y = super().forward(x)
+        return F.silu(y) if silu else y
+
+
+class AdaptedConv(FoldSite, nn.Module):
     """Conv with an optional LoCon low-rank delta.
 
     locon_type: "none", "vanilla_v1" (shared) or "hexa_v1" (per plane: the
-    input's batch is ``n_planes`` planes an item, plane-major).
+    input's batch is ``n_planes`` planes an item, plane-major). Folded
+    (``lora.Fold``), a shared LoCon adds into the conv's channels-last weight; a conv
+    with the per-plane one is no fold site and runs as it is.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3, stride: int = 1,
@@ -78,7 +101,22 @@ class AdaptedConv(nn.Module):
         elif locon_type not in ("none", None):
             raise ValueError(f"Unknown locon type {locon_type}")
 
+    @property
+    def foldable(self) -> bool:
+        return self.locon_type != "hexa_v1"
+
+    def fold_weights(self):
+        return fold_locon(self.conv, getattr(self, "locon", None), self.conv.weight.dtype)
+
+    def conv_without_bias(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """The conv of ``x`` with a folded ``weight``, its bias left to the caller."""
+        return F.conv2d(x, weight, None, self.conv.stride, self.conv.padding)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        folded = self.folded_now()
+        if folded is not None:
+            weight, bias = folded
+            return bias_add(self.conv_without_bias(x, weight), bias)
         y = self.conv(x)
         if self.locon_type in ("vanilla_v1", "vanilla", "hexa_v1"):
             return y + self.locon(x)
@@ -94,26 +132,46 @@ class ResnetBlock2D(nn.Module):
         super().__init__()
         conv_kw = dict(locon_type=locon_type, locon_rank=locon_rank, n_planes=n_planes,
                        dtype=dtype)
-        self.norm1 = nn.GroupNorm(_n_groups(groups, in_channels), in_channels, eps=eps,
-                                  dtype=dtype)
+        self.norm1 = GroupNorm(_n_groups(groups, in_channels), in_channels, eps=eps,
+                               dtype=dtype)
         self.conv1 = AdaptedConv(in_channels, out_channels, **conv_kw)
         self.time_emb_proj = (nn.Linear(time_emb_dim, out_channels, dtype=dtype)
                               if time_emb_dim is not None else None)
-        self.norm2 = nn.GroupNorm(_n_groups(groups, out_channels), out_channels, eps=eps,
-                                  dtype=dtype)
+        self.norm2 = GroupNorm(_n_groups(groups, out_channels), out_channels, eps=eps,
+                               dtype=dtype)
         self.conv2 = AdaptedConv(out_channels, out_channels, **conv_kw)
         self.conv_shortcut = (AdaptedConv(in_channels, out_channels, kernel_size=1, padding=0,
                                           **conv_kw)
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+        folded = self.conv1.folded_now()
+        if folded is not None:
+            return self._forward_folded(x, temb, folded)
+        h = self.conv1(self.norm1(x, silu=True))
         if temb is not None and self.time_emb_proj is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
+
+    def _forward_folded(self, x: torch.Tensor, temb: Optional[torch.Tensor],
+                        folded: tuple) -> torch.Tensor:
+        """The folded block: conv1's bias and the time embedding are ``norm2``'s shift,
+        and conv2's bias (with the shortcut's) is added with the residual in one pass."""
+        w1, b1 = folded
+        w2, b2 = self.conv2.folded_now()
+        h = self.conv1.conv_without_bias(self.norm1(x, silu=True), w1)
+        shift = b1
+        if temb is not None and self.time_emb_proj is not None:
+            shift = bias_sum(self.time_emb_proj(F.silu(temb)), b1)
+        h = self.conv2.conv_without_bias(self.norm2(h, silu=True, shift=shift), w2)
+        if self.conv_shortcut is not None:
+            ws, bs = self.conv_shortcut.folded_now()
+            x = self.conv_shortcut.conv_without_bias(x, ws)
+            b2 = bias_sum(b2, bs)
+        return bias_add(h, b2, residual=x)
 
 
 class Downsample2D(nn.Module):

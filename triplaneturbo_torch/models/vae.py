@@ -21,9 +21,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.nhwc import bias_add
 from .attention import AdapterSpec, Attention
+from .lora import FoldSite, fold_locon
 from .unet import DTYPES
-from .unet_blocks import AdaptedConv, ResnetBlock2D, Upsample2D, _n_groups, run_block
+from .unet_blocks import (
+    AdaptedConv,
+    GroupNorm,
+    ResnetBlock2D,
+    Upsample2D,
+    _n_groups,
+    run_block,
+)
 
 
 @dataclass(frozen=True)
@@ -45,6 +54,27 @@ class VAEConfig:
         return DTYPES[self.dtype_str]
 
 
+class CastConv2d(FoldSite, nn.Conv2d):
+    """A conv whose parameters are cast to its input's dtype in the forward: flax's
+    conv with ``param_dtype`` f32 and ``dtype`` the model's (``compute_dtype``). Folded
+    (``lora.Fold``), on a channels-last copy of its weight in ``compute_dtype``."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def fold_weights(self):
+        return fold_locon(self, None, self.compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        folded = self.folded_now()
+        if folded is not None:
+            weight, bias = folded
+            return bias_add(F.conv2d(x, weight, None, self.stride, self.padding), bias)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 class VAEAttnBlock(nn.Module):
     """Single-head self-attention over spatial tokens (head dim = channels)."""
 
@@ -52,7 +82,7 @@ class VAEAttnBlock(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         C = channels
-        self.group_norm = nn.GroupNorm(_n_groups(32, C), C, eps=1e-6, dtype=dtype)
+        self.group_norm = GroupNorm(_n_groups(32, C), C, eps=1e-6, dtype=dtype)
         self.attention = Attention(C, heads=1, dim_head=C, qkv_bias=True,
                                    adapters=AdapterSpec(self_lora_type=lora_type, self_rank=rank),
                                    dtype=dtype)
@@ -86,8 +116,10 @@ class Decoder(nn.Module):
             if i < len(rev) - 1:
                 self.add_module(f"up_{i}_upsample", Upsample2D(
                     ch, locon_type=cfg.locon_type, locon_rank=cfg.rank, dtype=dtype))
-        self.conv_norm_out = nn.GroupNorm(_n_groups(32, rev[-1]), rev[-1], eps=1e-6, dtype=dtype)
-        self.conv_out_retrofit = nn.Conv2d(rev[-1], cfg.output_dim, 3, padding=1, dtype=dtype)
+        self.conv_norm_out = GroupNorm(_n_groups(32, rev[-1]), rev[-1], eps=1e-6, dtype=dtype)
+        # trainable, so stored in f32 (as the recipe and the flax conv keep it)
+        self.conv_out_retrofit = CastConv2d(rev[-1], cfg.output_dim, 3, padding=1,
+                                            dtype=torch.float32, compute_dtype=dtype)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         """z [N, 4, h, w] -> [N, C_out, 8h, 8w] float32."""
@@ -102,7 +134,7 @@ class Decoder(nn.Module):
                 h = run_block(getattr(self, f"up_{i}_res_{j}"), cfg.remat, h, None)
             if i < n_up - 1:
                 h = getattr(self, f"up_{i}_upsample")(h)
-        return self.conv_out_retrofit(F.silu(self.conv_norm_out(h))).float()
+        return self.conv_out_retrofit(self.conv_norm_out(h, silu=True)).float()
 
 
 class Encoder(nn.Module):

@@ -18,6 +18,7 @@ The entry point runs on the GPU unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from dataclasses import dataclass
@@ -28,6 +29,7 @@ import torch
 from ..models.clip_text import CLIPTextConfig, CLIPTextEncoder
 from ..models.geometry.space_generator import SpaceGeneratorConfig
 from ..models.geometry.triplane_geometry import TriplaneGeometry, TriplaneGeometryConfig
+from ..models.lora import Fold
 from ..models.networks import MLPConfig, get_activation
 from ..models.schedulers import Schedule, SchedulerConfig, ddim_step, ddim_timesteps, make_schedule
 from ..models.tokenizer import CLIPTokenizer
@@ -91,6 +93,7 @@ class TriplaneTurboTextTo3DPipeline:
         self.device = device
         self.material = get_activation(cfg.color_activation)
         self._unet_graphs: Dict[tuple, _GraphedDenoise] = {}
+        self._fold: Optional[Fold] = None
 
     @classmethod
     def from_pretrained(cls, pretrained_model_name_or_path: Optional[str] = None, seed: int = 0,
@@ -194,6 +197,17 @@ class TriplaneTurboTextTo3DPipeline:
         unet.text.copy_(text_embed)
         return unet
 
+    def _adapters_folded(self, latents: torch.Tensor):
+        """Where ``can_capture`` allows it, a context in which the student's frozen
+        adapters run folded into its weights and its conv trunk channels-last
+        (``models/lora.py`` ``Fold``, built at the first such call and refolded whenever
+        a parameter was written); elsewhere none, and the adapters run as they are."""
+        if not can_capture(latents):
+            return contextlib.nullcontext()
+        if self._fold is None:
+            self._fold = Fold(self.geometry)
+        return self._fold.engaged()
+
     def field_on_grid(self, space_cache_i: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """SDF [R³] and deformation [R³, 3] on the dense grid of one item."""
         R = self.cfg.isosurface_resolution
@@ -246,10 +260,11 @@ class TriplaneTurboTextTo3DPipeline:
 
             with stage("text_encoder"):
                 text_embed = self.encode_prompt(prompt)
-            with stage("denoise"):
-                out_latents = self.denoise_latents(text_embed, latents)
-            with stage("vae_decode"):
-                space_cache = self.geometry.decode(out_latents)
+            with self._adapters_folded(latents):
+                with stage("denoise"):
+                    out_latents = self.denoise_latents(text_embed, latents)
+                with stage("vae_decode"):
+                    space_cache = self.geometry.decode(out_latents)
             meshes = []
             for i in range(B):
                 with stage("field_grid"):
