@@ -1,12 +1,11 @@
 """The port's config system against the JAX package's, on the CPU.
 
-The port reads YAML with a reader of its own (the card has no PyYAML): it must
-give ``yaml.safe_load``'s value on every file of ``configs/`` and on the YAML
-forms a config may hold; ``load_config`` must give the JAX ``load_config``'s dict
-(as primitives, without the timestamp and the trial names and directory, which
-carry the clock) on each config with and without dotlist overrides, ``__base__``
-included; ``parse_structured`` must build both packages' ``TrainerConfig`` the
-same from each config, on the fields the port reads.
+``load_config`` must give the JAX ``load_config``'s dict (as primitives, without
+the timestamp and the trial names and directory, which carry the clock) on each
+config with and without dotlist overrides, ``__base__`` included, and on each YAML
+form a config may hold; ``dump_config``'s file must load back to the same dict;
+``parse_structured`` must build both packages' ``TrainerConfig`` the same from each
+config, on the fields the port reads.
 """
 
 import dataclasses
@@ -14,7 +13,6 @@ import glob
 import os
 
 import pytest
-import yaml
 
 from triplaneturbo_tpu.systems.trainer import (
     LossConfig as JaxLossConfig,
@@ -38,13 +36,6 @@ def test_configs_exist():
     assert len(CONFIGS) >= 4, CONFIGS
 
 
-@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
-def test_yaml_reader_matches_safe_load_on_every_config(path):
-    with open(path) as f:
-        text = f.read()
-    assert tconfig.yaml_load(text) == yaml.safe_load(text)
-
-
 YAML_CASES = [
     "a: 1\nb: 1.5\nc: 1.0e-15\nd: 1e-15\ne: -3\nf: +7\ng: 0x1F\nh: .5\ni: 1_000\n",
     "a: yes\nb: No\nc: on\nd: OFF\ne: true\nf: False\ng: ~\nh: null\ni:\nj: None\n",
@@ -57,22 +48,28 @@ YAML_CASES = [
 ]
 
 
-@pytest.mark.parametrize("text", YAML_CASES)
-def test_yaml_reader_matches_safe_load_on_yaml_forms(text):
-    assert tconfig.yaml_load(text) == yaml.safe_load(text)
-
-
-def test_yaml_reader_reads_back_dump_config(tmp_path):
-    cfg = tconfig.load_config(os.path.join(REPO, "configs", "triplaneturbo_v1.yaml"))
-    path = str(tmp_path / "parsed.yaml")
-    tconfig.dump_config(path, cfg)
-    with open(path) as f:
-        text = f.read()
-    assert tconfig.yaml_load(text) == tconfig.config_to_primitive(cfg)
-
-
 def _without_clock(cfg):
     return {k: v for k, v in jconfig.config_to_primitive(cfg).items() if k not in CLOCK}
+
+
+@pytest.mark.parametrize("text", YAML_CASES)
+def test_load_config_reads_each_yaml_form_as_jax_does(text, tmp_path):
+    """Each form as the value of a key in a config file, through both packages'
+    ``load_config``."""
+    path = tmp_path / "form.yaml"
+    path.write_text("form:\n" + "".join(f"  {line}\n" for line in text.splitlines()))
+    got = tconfig.load_config(str(path))
+    assert _without_clock(got) == _without_clock(jconfig.load_config(str(path)))
+    assert got.form is not None
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
+def test_dump_config_reads_back_through_load_config(path, tmp_path, monkeypatch):
+    monkeypatch.chdir(REPO)  # ``__base__`` names a path from the repository's root
+    cfg = tconfig.load_config(os.path.relpath(path, REPO))
+    dumped = str(tmp_path / "parsed.yaml")
+    tconfig.dump_config(dumped, cfg)
+    assert _without_clock(tconfig.load_config(dumped)) == _without_clock(cfg)
 
 
 @pytest.mark.parametrize("overrides", [False, True], ids=["plain", "dotlist"])
@@ -124,8 +121,6 @@ def test_resolvers_and_dotlist_errors():
         tconfig.apply_dotlist({}, ["novalue"])
     with pytest.raises(ValueError, match="non-dict"):
         tconfig.apply_dotlist({"a": 1}, ["a.b=2"])
-    with pytest.raises(tconfig.YAMLError):
-        tconfig.yaml_load("a:\n  - 1\n  - 2\n")
 
 
 def test_port_drops_only_the_keys_it_does_not_carry_over(monkeypatch):

@@ -11,6 +11,8 @@ card), so these tests engage a ``Fold`` directly:
   from the f32 forward than twice the unfolded bf16 forward;
 * a parameter written after a folded call shows in the next folded call; a GroupNorm
   runs on its own parameters, with no copy to refold;
+* engagements nest: the outermost entry refolds, inner ones do nothing, and the fold
+  stays on until the outermost exit;
 * with grad on, an engaged fold changes nothing: the output is bit-equal to the
   unfolded one and the adapters take their gradients;
 * the per-plane (hexa) LoCon is not folded and runs as it is; ``state_dict`` is
@@ -200,6 +202,30 @@ def test_a_folded_group_norm_runs_on_its_own_parameters(dtype):
     assert not torch.equal(got, first)
     assert torch.equal(got, _call(norm, (x,)))
     assert not fold.refresh()  # the write was picked up, and the refold wrote nothing
+
+
+def test_a_nested_engagement_refolds_once_and_holds_until_the_outermost_exit():
+    conv = _randomize(AdaptedConv(8, 12, locon_type="vanilla_v1", locon_rank=4), 21)
+    fold = Fold(conv)
+    refreshes = []
+    real = fold.refresh
+
+    def refresh():
+        refreshes.append(real())
+        return refreshes[-1]
+
+    fold.refresh = refresh
+    with fold.engaged():
+        with fold.engaged():
+            assert fold.on
+        assert fold.on  # the inner exit leaves the fold on
+        with torch.no_grad():
+            conv.conv.bias.add_(1.0)  # an inner entry does not refold for this
+        with fold.engaged():
+            assert fold.on
+    assert not fold.on
+    assert refreshes == [True]
+    assert fold.refresh()  # the write waits for the next outermost entry
 
 
 def test_with_grad_the_adapters_run_as_before():

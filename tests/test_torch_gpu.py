@@ -10,6 +10,7 @@ Float32 matmuls and cuDNN convolutions run with TF32 off, so the f32
 comparisons are against full-f32 PyTorch.
 """
 
+import contextlib
 from collections import Counter
 
 import numpy as np
@@ -894,11 +895,16 @@ def _rel(a, b):
 
 
 def _eager(monkeypatch):
-    """The UNet eager, the adapters still folded."""
+    """The UNet eager, the adapters still folded: the fast path's UNet engages the fold
+    and gives no graph."""
     from triplaneturbo_torch.pipelines import triplaneturbo_text_to_3d as pl
 
-    monkeypatch.setattr(pl.TriplaneTurboTextTo3DPipeline, "_graphed_unet",
-                        lambda self, text, latents: None)
+    @contextlib.contextmanager
+    def unet(self, text, latents):
+        with self.fold.engaged():
+            yield None
+
+    monkeypatch.setattr(pl._FastPath, "unet", unet)
 
 
 def _unfolded(monkeypatch):
@@ -911,22 +917,25 @@ def _unfolded(monkeypatch):
 
 def test_piecewise_unet_matches_the_eager_call(cuda):
     """Two calls of the graphed UNet with other latents, timesteps and text states
-    (the static buffers reused): ε within 1e-6 of the eager call's largest value; the
-    pieces are the attention calls plus one."""
+    (the static buffers reused): ε within 1e-6 of the eager call's largest value, both
+    folded; the pieces are the attention calls plus one."""
+    from triplaneturbo_torch.pipelines import triplaneturbo_text_to_3d as pl
     from triplaneturbo_torch.utils import profiling
 
     pipe = _graph_pipe()
+    fast = pl._FastPath(pipe.geometry)
     with torch.no_grad():
         for i, (prompt, t) in enumerate((("a hamburger", 999), ("a wooden chair", 499))):
             text = pipe.encode_prompt([prompt])
             lat = _graph_latents(i)
-            unet = pipe._graphed_unet(text, lat)
-            got = unet(lat, t).clone()
-            ref = pipe.geometry.denoise(lat, text, t)
+            with fast.unet(text, lat) as unet:
+                got = unet(lat, t).clone()
+                ref = pipe.geometry.denoise(lat, text, t)
             torch.cuda.synchronize()
             assert torch.isfinite(got).all() and ref.abs().max() > 0
             assert _rel(got, ref) <= 1e-6, (t, _rel(got, ref))
-        assert len(pipe._unet_graphs) == 1
+        assert len(fast.graphs) == 1
+        graph = next(iter(fast.graphs.values()))
         profiling.clear()
         with profiling.recording():
             pipe.geometry.denoise(lat, text, t)
@@ -935,8 +944,8 @@ def test_piecewise_unet_matches_the_eager_call(cuda):
     # a transformer block down, one in the middle, two up: a self- and a cross-attention
     # call each (the middle's 8² cross-attention on the einsum route)
     assert n_attention == 8
-    assert unet.graph.n_splits == n_attention
-    assert unet.graph.n_pieces == n_attention + 1
+    assert graph.n_splits == n_attention
+    assert graph.n_pieces == n_attention + 1
 
 
 def test_graphed_pipeline_returns_nothing_a_replay_rewrites(cuda, monkeypatch):
@@ -944,7 +953,7 @@ def test_graphed_pipeline_returns_nothing_a_replay_rewrites(cuda, monkeypatch):
     pipeline's x̂₀ and planes match the eager pipeline's."""
     pipe = _graph_pipe()
     out1 = pipe("a hamburger", latents=_graph_latents(1))
-    assert len(pipe._unet_graphs) == 1  # the first call captured
+    assert len(pipe._fast.graphs) == 1  # the first call captured
     kept = {k: out1[k].clone() for k in ("latents", "space_cache")}
     out2 = pipe("a wooden chair", latents=_graph_latents(2))
     torch.cuda.synchronize()
@@ -1013,24 +1022,35 @@ def test_graphed_call_keeps_every_attention_span(cuda, monkeypatch):
 # -- the frozen adapters folded into the bf16 weights (models/lora.py Fold) -------------
 
 
-def test_a_weight_reload_between_two_graphed_calls_shows(cuda, monkeypatch):
-    """Adapter and base weights written in place (as the benchmark's ``p.copy_`` and
-    ``load_state_dict`` do) between two graphed, folded calls: the second call sees them
-    (refolded in place, the graph kept) and matches the eager folded call bit for bit
-    and the unfolded eager route in f32 (1e-3 of the largest value, chip_smoke.py's
-    SMALL_REL_TOL: other summation orders, amplified by the DDIM step's x0)."""
-    pipe = _graph_pipe()
-    lat = _graph_latents(5)
-    first = pipe("a hamburger", latents=lat)
-    graph = next(iter(pipe._unet_graphs.values())).graph
-    kept = {k: first[k].clone() for k in ("latents", "space_cache")}
-    gen = torch.Generator(device="cuda").manual_seed(6)
+def _write_weights(pipe, seed):
+    """Adapter and base weights scaled in place, as the benchmark's ``p.copy_`` and
+    ``load_state_dict`` write them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     with torch.no_grad():
         for name, p in pipe.geometry.space_generator.named_parameters():
             if name.endswith(("up", "up.weight", "conv.weight")):
                 p.mul_(1.0 + 0.5 * torch.rand(p.shape, generator=gen, device="cuda"))
+
+
+def _only_graph(pipe):
+    (graph,) = pipe._fast.graphs.values()
+    return graph
+
+
+def test_a_weight_reload_between_two_graphed_calls_shows(cuda, monkeypatch):
+    """Adapter and base weights written in place between two graphed, folded calls:
+    the second call sees them (refolded in place, the graph kept) and matches the eager
+    folded call bit for bit and the unfolded eager route in f32 (1e-3 of the largest
+    value, chip_smoke.py's SMALL_REL_TOL: other summation orders, amplified by the DDIM
+    step's x0)."""
+    pipe = _graph_pipe()
+    lat = _graph_latents(5)
+    first = pipe("a hamburger", latents=lat)
+    graph = _only_graph(pipe)
+    kept = {k: first[k].clone() for k in ("latents", "space_cache")}
+    _write_weights(pipe, 6)
     second = pipe("a hamburger", latents=lat)
-    assert next(iter(pipe._unet_graphs.values())).graph is graph  # not captured again
+    assert _only_graph(pipe) is graph  # not captured again
     for k, v in kept.items():
         assert _rel(second[k], v) > 1e-3, k
     with monkeypatch.context() as m:
@@ -1042,6 +1062,39 @@ def test_a_weight_reload_between_two_graphed_calls_shows(cuda, monkeypatch):
     for k in ("latents", "space_cache"):
         assert _rel(second[k], eager[k]) <= 1e-6, (k, _rel(second[k], eager[k]))
         assert _rel(second[k], plain[k]) <= 1e-3, (k, _rel(second[k], plain[k]))
+
+
+def test_a_direct_denoise_refolds_before_it_replays(cuda, monkeypatch):
+    """ROADMAP C6. After a graphed call and a weight write in place, a direct
+    ``denoise_latents`` refolds before it replays the graph: its x̂₀ moves off the one
+    before the write (by more than 1e-3 of its largest value) and matches the eager
+    folded route (1e-6). Conversely, a first ``denoise_latents`` on a fresh pipeline
+    captures the graph inside the fold, and the ``__call__`` after it replays that graph
+    and matches the eager folded route (1e-6)."""
+    pipe = _graph_pipe()
+    lat = _graph_latents(8)
+    before = pipe("a hamburger", latents=lat)["latents"].clone()
+    _write_weights(pipe, 9)
+    with torch.no_grad():
+        text = pipe.encode_prompt(["a hamburger"])
+        got = pipe.denoise_latents(text, lat).clone()
+        assert _rel(got, before) > 1e-3, _rel(got, before)
+        with monkeypatch.context() as m:
+            _eager(m)
+            ref = pipe.denoise_latents(text, lat)
+    assert _rel(got, ref) <= 1e-6, _rel(got, ref)
+
+    fresh = _graph_pipe()
+    with torch.no_grad():
+        first = fresh.denoise_latents(fresh.encode_prompt(["a wooden chair"]), lat).clone()
+    graph = _only_graph(fresh)
+    out = fresh("a wooden chair", latents=lat)
+    assert _only_graph(fresh) is graph  # the call replays the direct call's graph
+    with monkeypatch.context() as m:
+        _eager(m)
+        ref = fresh("a wooden chair", latents=lat)
+    for x0 in (out["latents"], first):
+        assert _rel(x0, ref["latents"]) <= 1e-6, _rel(x0, ref["latents"])
 
 
 def test_full_width_folded_graphed_pipeline_against_the_unfolded_route(cuda, monkeypatch):
@@ -1065,7 +1118,7 @@ def test_full_width_folded_graphed_pipeline_against_the_unfolded_route(cuda, mon
     prompt = "a delicious hamburger"
     pipe(prompt, latents=lat)  # captures and folds
     folded = pipe(prompt, latents=lat)
-    assert pipe._fold is not None and len(pipe._fold.sites) > 0
+    assert pipe._fast is not None and len(pipe._fast.fold.sites) > 0
     with monkeypatch.context() as m:
         _unfolded(m)
         plain = pipe(prompt, latents=lat)

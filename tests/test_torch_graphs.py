@@ -54,8 +54,7 @@ def test_denoise_stays_eager_on_the_cpu(pipe):
     with profiling.recording():
         pipe("a hamburger", latents=_latents(0))
         pipe("a wooden chair", latents=_latents(1))
-    assert pipe._unet_graphs == {}
-    assert pipe._fold is None  # nor are the adapters folded
+    assert pipe._fast is None  # no graph, nor are the adapters folded
     recs = profiling.spans()
     roots = [r.id for r in recs if r.parent is None]
     assert len(roots) == 2

@@ -335,7 +335,7 @@ def test_port_imports_nothing_of_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'triplaneturbo_tpu', 'yaml', 'imageio', 'msgpack'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'triplaneturbo_tpu', 'imageio', 'msgpack'))\n"
         "assert not bad, bad\n"
         "for name in ('systems.trainer', 'systems.optimizers', 'utils.schedule', 'utils.weights',\n"
         "             'ops.flash_attention', 'ops.field_grid', 'pipelines.triplaneturbo_text_to_3d',\n"

@@ -253,6 +253,11 @@ class Fold:
 
     @contextlib.contextmanager
     def engaged(self) -> Iterator[None]:
+        """Refold (:meth:`refresh`) and run the sites folded until the exit. Entries nest:
+        an inner one does nothing, and the fold stays on until the outermost exits."""
+        if self.on:
+            yield
+            return
         self.refresh()
         self.on = True
         try:

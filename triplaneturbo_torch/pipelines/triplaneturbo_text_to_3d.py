@@ -22,7 +22,7 @@ import contextlib
 import json
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
@@ -92,8 +92,7 @@ class TriplaneTurboTextTo3DPipeline:
         self.schedule = schedule
         self.device = device
         self.material = get_activation(cfg.color_activation)
-        self._unet_graphs: Dict[tuple, _GraphedDenoise] = {}
-        self._fold: Optional[Fold] = None
+        self._fast: Optional[_FastPath] = None
 
     @classmethod
     def from_pretrained(cls, pretrained_model_name_or_path: Optional[str] = None, seed: int = 0,
@@ -164,49 +163,39 @@ class TriplaneTurboTextTo3DPipeline:
         """The DDIM loop; returns the last step's x̂₀ (what gets decoded).
 
         Where ``utils/cuda_graphs.py`` ``can_capture`` allows it (on the card, without
-        grad or a FLOP count), the student UNet replays as a piecewise CUDA graph, one a
-        shape of latents and text states, captured at the first call of that shape;
-        elsewhere it runs eagerly. Each step counts ``unet_graph_calls`` and
+        grad or a FLOP count), it takes the fast path (:class:`_FastPath`): adapters
+        folded, the UNet replayed as a piecewise CUDA graph; elsewhere the UNet runs
+        eagerly on the adapters as they are. Each step counts ``unet_graph_calls`` and
         ``unet_eager_calls`` on its span. The DDIM update runs eagerly either way, so
         nothing returned lies in a graph's memory."""
-        cfg = self.cfg
-        unet = self._graphed_unet(text_embed, init_latents)
-        latents = x0 = init_latents
-        for t in ddim_timesteps(self.schedule, cfg.num_inference_steps):
-            with span("ddim_step"):
-                count("unet_graph_calls", int(unet is not None))
-                count("unet_eager_calls", int(unet is None))
-                if unet is None:
-                    eps = self.geometry.denoise(latents, text_embed, int(t))
-                else:
-                    eps = unet(latents, int(t))
-                out = ddim_step(self.schedule, eps, int(t), latents, cfg.num_inference_steps)
-            latents, x0 = out.prev_sample, out.pred_original_sample
-        return x0
+        return self._denoise(text_embed, init_latents, self._fast_path(init_latents))
 
-    def _graphed_unet(self, text_embed: torch.Tensor, latents: torch.Tensor
-                      ) -> Optional["_GraphedDenoise"]:
-        """The graphed ``geometry.denoise`` at these shapes, its text states set, or
-        None where the UNet runs eagerly."""
+    def _fast_path(self, latents: torch.Tensor) -> Optional["_FastPath"]:
+        """The route of one call on ``latents``: the fast path (built at the first call
+        that ``can_capture`` allows), or None where the call runs eagerly."""
         if not can_capture(latents):
             return None
-        key = (tuple(latents.shape), tuple(text_embed.shape), text_embed.dtype, latents.device)
-        unet = self._unet_graphs.get(key)
-        if unet is None:
-            unet = self._unet_graphs[key] = _GraphedDenoise(self.geometry, latents, text_embed)
-        unet.text.copy_(text_embed)
-        return unet
+        if self._fast is None:
+            self._fast = _FastPath(self.geometry)
+        return self._fast
 
-    def _adapters_folded(self, latents: torch.Tensor):
-        """Where ``can_capture`` allows it, a context in which the student's frozen
-        adapters run folded into its weights and its conv trunk channels-last
-        (``models/lora.py`` ``Fold``, built at the first such call and refolded whenever
-        a parameter was written); elsewhere none, and the adapters run as they are."""
-        if not can_capture(latents):
-            return contextlib.nullcontext()
-        if self._fold is None:
-            self._fold = Fold(self.geometry)
-        return self._fold.engaged()
+    def _denoise(self, text_embed: torch.Tensor, init_latents: torch.Tensor,
+                 fast: Optional["_FastPath"]) -> torch.Tensor:
+        n_steps = self.cfg.num_inference_steps
+        with (contextlib.nullcontext() if fast is None
+              else fast.unet(text_embed, init_latents)) as unet:
+            latents = x0 = init_latents
+            for t in ddim_timesteps(self.schedule, n_steps):
+                with span("ddim_step"):
+                    count("unet_graph_calls", int(unet is not None))
+                    count("unet_eager_calls", int(unet is None))
+                    if unet is None:
+                        eps = self.geometry.denoise(latents, text_embed, int(t))
+                    else:
+                        eps = unet(latents, int(t))
+                    out = ddim_step(self.schedule, eps, int(t), latents, n_steps)
+                latents, x0 = out.prev_sample, out.pred_original_sample
+        return x0
 
     def field_on_grid(self, space_cache_i: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """SDF [R³] and deformation [R³, 3] on the dense grid of one item."""
@@ -260,9 +249,10 @@ class TriplaneTurboTextTo3DPipeline:
 
             with stage("text_encoder"):
                 text_embed = self.encode_prompt(prompt)
-            with self._adapters_folded(latents):
+            fast = self._fast_path(latents)
+            with contextlib.nullcontext() if fast is None else fast.fold.engaged():
                 with stage("denoise"):
-                    out_latents = self.denoise_latents(text_embed, latents)
+                    out_latents = self._denoise(text_embed, latents, fast)
                 with stage("vae_decode"):
                     space_cache = self.geometry.decode(out_latents)
             meshes = []
@@ -280,27 +270,41 @@ class TriplaneTurboTextTo3DPipeline:
             return meshes
 
 
-class _GraphedDenoise:
-    """``geometry.denoise`` at one shape as a :class:`PiecewiseGraph` over static
-    buffers: the latents (f32), the text states, the timestep (``long``, one a plane)
-    and ε, the output. A call copies the latents in, fills the timestep and replays
-    (capturing first, at the first call); the text states are set once a pipeline call.
-    """
+class _FastPath:
+    """The serving fast path of one pipeline on the card: the student's frozen adapters
+    folded into its weights, its trunk channels-last (``models/lora.py`` ``Fold``), and
+    its UNet replayed as a piecewise CUDA graph, one a shape of latents and text states.
+    A graph is captured and replayed only inside the fold's engagement, which refolds
+    whenever a parameter was written: no graph holds the unfolded kernels, and none
+    replays folded copies older than the parameters."""
 
-    def __init__(self, geometry: TriplaneGeometry, latents: torch.Tensor,
-                 text_embed: torch.Tensor):
-        B, P = latents.shape[:2]
-        self.latents = torch.empty_like(latents, memory_format=torch.contiguous_format)
-        self.text = torch.empty_like(text_embed, memory_format=torch.contiguous_format)
-        self.t = torch.empty(B * P, dtype=torch.long, device=latents.device)
-        self.graph = PiecewiseGraph(lambda: geometry.denoise(self.latents, self.text, self.t))
+    def __init__(self, geometry: TriplaneGeometry):
+        self.geometry = geometry
+        self.fold = Fold(geometry)
+        self.graphs: Dict[tuple, PiecewiseGraph] = {}
 
-    def __call__(self, latents: torch.Tensor, t: int) -> torch.Tensor:
-        self.latents.copy_(latents)
-        self.t.fill_(t)
-        if not self.graph.steps:
-            self.graph.capture()
-        return self.graph.replay()
+    @contextlib.contextmanager
+    def unet(self, text_embed: torch.Tensor, latents: torch.Tensor
+             ) -> Iterator[Callable[[torch.Tensor, int], torch.Tensor]]:
+        """With the fold engaged, ``step(latents, t)`` -> ε: ``geometry.denoise`` by
+        the graph of these shapes, its text states set once here, the latents copied in
+        and the timestep (``long``, one a plane) filled at each step."""
+        key = (tuple(latents.shape), tuple(text_embed.shape), text_embed.dtype, latents.device)
+        graph = self.graphs.get(key)
+        if graph is None:
+            ts = torch.empty(latents.shape[:2].numel(), dtype=torch.long, device=latents.device)
+            graph = PiecewiseGraph(self.geometry.denoise, latents, text_embed, ts)
+            self.graphs[key] = graph
+        x_in, text_in, t_in = graph.inputs
+        text_in.copy_(text_embed)
+
+        def step(x: torch.Tensor, t: int) -> torch.Tensor:
+            x_in.copy_(x)
+            t_in.fill_(t)
+            return graph.replay()
+
+        with self.fold.engaged():
+            yield step
 
 
 def export_obj(mesh: Mesh, save_path: str, save_normal: bool = False) -> List[str]:

@@ -7,11 +7,8 @@ overrides (``system.loss.lambda_sdf=0.1``) and keyword arguments, resolves the
 and computes the trial directory; :func:`parse_structured` builds a dataclass
 from a dict.
 
-The port reads YAML without PyYAML: :func:`yaml_load` parses the subset the
-configs use (block mappings, flow lists and maps, plain and quoted scalars,
-comments) and resolves plain scalars as ``yaml.safe_load`` does (YAML 1.1:
-``1.0e-15`` is a float, ``1e-15`` a string; ``yes``/``on`` are booleans).
-:func:`dump_config` writes JSON, which is YAML too.
+YAML is read with ``yaml.safe_load``; :func:`dump_config` writes JSON, which is
+YAML too.
 """
 
 from __future__ import annotations
@@ -22,7 +19,9 @@ import os
 import re
 import typing
 from datetime import datetime
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Union
+
+import yaml
 
 
 class DotDict(dict):
@@ -55,276 +54,21 @@ def _wrap(obj: Any) -> Any:
     return obj
 
 
-# --- the YAML subset ----------------------------------------------------------
-
-
-class YAMLError(ValueError):
-    pass
-
-
-# the YAML 1.1 implicit resolvers of PyYAML's SafeLoader
-_BOOL = {"yes": True, "Yes": True, "YES": True, "no": False, "No": False, "NO": False,
-         "true": True, "True": True, "TRUE": True, "false": False, "False": False,
-         "FALSE": False, "on": True, "On": True, "ON": True, "off": False, "Off": False,
-         "OFF": False}
-_NULL = {"", "~", "null", "Null", "NULL"}
-_INT_RE = re.compile(r"[-+]?(?:0b[0-1_]+|0[0-7_]+|(?:0|[1-9][0-9_]*)|0x[0-9a-fA-F_]+)")
-_FLOAT_RE = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
-                       r"|\.[0-9_]+(?:[eE][-+][0-9]+)?"
-                       r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)")
-
-
-def _resolve_plain(s: str) -> Any:
-    """A plain (unquoted) scalar's value: null, bool, int, float or the string."""
-    if s in _NULL:
-        return None
-    if s in _BOOL:
-        return _BOOL[s]
-    if _INT_RE.fullmatch(s):
-        body = s.replace("_", "")
-        sign = -1 if body[0] == "-" else 1
-        body = body.lstrip("+-")
-        if body.startswith("0b"):
-            return sign * int(body[2:], 2)
-        if body.startswith("0x"):
-            return sign * int(body[2:], 16)
-        if len(body) > 1 and body[0] == "0":
-            return sign * int(body, 8)
-        return sign * int(body)
-    if _FLOAT_RE.fullmatch(s):
-        body = s.replace("_", "").lower()
-        if body.endswith("inf"):
-            return float("-inf") if body[0] == "-" else float("inf")
-        if body.endswith("nan"):
-            return float("nan")
-        return float(body)
-    return s
-
-
-_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n", "v": "\v",
-            "f": "\f", "r": "\r", "e": "\x1b", " ": " ", '"': '"', "/": "/", "\\": "\\",
-            "N": "\x85", "_": "\xa0"}
-
-
-class _Flow:
-    """Recursive-descent reader of one flow node (``[...]``, ``{...}`` or a scalar)
-    in ``text`` from ``pos``."""
-
-    def __init__(self, text: str, pos: int = 0):
-        self.text, self.pos = text, pos
-
-    def _ws(self) -> None:
-        while self.pos < len(self.text) and self.text[self.pos] in " \t":
-            self.pos += 1
-
-    def _peek(self) -> str:
-        return self.text[self.pos] if self.pos < len(self.text) else ""
-
-    def node(self, in_flow: bool) -> Any:
-        self._ws()
-        c = self._peek()
-        if c == "[":
-            return self._seq()
-        if c == "{":
-            return self._map()
-        if c in "\"'":
-            return self._quoted()
-        return self._plain(in_flow)
-
-    def _seq(self) -> list:
-        self.pos += 1
-        out = []
-        while True:
-            self._ws()
-            if self._peek() == "]":
-                self.pos += 1
-                return out
-            out.append(self.node(True))
-            self._ws()
-            c = self._peek()
-            self.pos += 1
-            if c == "]":
-                return out
-            if c != ",":
-                raise YAMLError(f"expected ',' or ']' in a flow sequence: {self.text!r}")
-
-    def _map(self) -> dict:
-        self.pos += 1
-        out = {}
-        while True:
-            self._ws()
-            if self._peek() == "}":
-                self.pos += 1
-                return out
-            key = self.node(True)
-            self._ws()
-            if self._peek() != ":":
-                raise YAMLError(f"expected ':' in a flow mapping: {self.text!r}")
-            self.pos += 1
-            out[key] = self.node(True)
-            self._ws()
-            c = self._peek()
-            self.pos += 1
-            if c == "}":
-                return out
-            if c != ",":
-                raise YAMLError(f"expected ',' or '}}' in a flow mapping: {self.text!r}")
-
-    def _quoted(self) -> str:
-        q = self.text[self.pos]
-        self.pos += 1
-        out = []
-        while True:
-            if self.pos >= len(self.text):
-                raise YAMLError(f"unterminated quoted scalar: {self.text!r}")
-            c = self.text[self.pos]
-            if q == "'" and c == "'":
-                if self.text[self.pos + 1:self.pos + 2] == "'":
-                    out.append("'")
-                    self.pos += 2
-                    continue
-                self.pos += 1
-                return "".join(out)
-            if q == '"' and c == '"':
-                self.pos += 1
-                return "".join(out)
-            if q == '"' and c == "\\":
-                e = self.text[self.pos + 1:self.pos + 2]
-                if e in ("x", "u", "U"):
-                    n = {"x": 2, "u": 4, "U": 8}[e]
-                    out.append(chr(int(self.text[self.pos + 2:self.pos + 2 + n], 16)))
-                    self.pos += 2 + n
-                    continue
-                if e not in _ESCAPES:
-                    raise YAMLError(f"unknown escape \\{e} in {self.text!r}")
-                out.append(_ESCAPES[e])
-                self.pos += 2
-                continue
-            out.append(c)
-            self.pos += 1
-
-    def _plain(self, in_flow: bool) -> Any:
-        start = self.pos
-        while self.pos < len(self.text):
-            c = self.text[self.pos]
-            if in_flow and c in ",[]{}":
-                break
-            if c == ":" and (self.pos + 1 == len(self.text) or self.text[self.pos + 1] in " \t"
-                             or (in_flow and self.text[self.pos + 1] in ",[]{}")):
-                break
-            if c == "#" and self.pos > start and self.text[self.pos - 1] in " \t":
-                break
-            self.pos += 1
-        return _resolve_plain(self.text[start:self.pos].strip())
-
-
-def _strip_comment(line: str) -> str:
-    """``line`` without a comment: a ``#`` at its start or after a blank, outside quotes."""
-    quote = None
-    for i, c in enumerate(line):
-        if quote:
-            if c == quote:
-                quote = None
-        elif c in "\"'" and (i == 0 or line[i - 1] in " \t[{,:"):
-            quote = c
-        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
-            return line[:i]
-    return line
-
-
-def _split_key(content: str) -> Tuple[Any, str]:
-    """(key, rest) of a block mapping entry ``key: rest``."""
-    flow = _Flow(content)
-    c = content[:1]
-    if c in "\"'":
-        key = flow._quoted()
-    else:
-        i = 0
-        while True:
-            i = content.find(":", i)
-            if i < 0:
-                raise YAMLError(f"expected 'key: value', got {content!r}")
-            if i + 1 == len(content) or content[i + 1] in " \t":
-                break
-            i += 1
-        key = _resolve_plain(content[:i].strip())
-        flow.pos = i
-    flow._ws()
-    if flow._peek() != ":":
-        raise YAMLError(f"expected ':' after the key in {content!r}")
-    return key, content[flow.pos + 1:].strip()
-
-
-def _value(text: str) -> Any:
-    """A value on one line: a flow collection, a quoted or a plain scalar."""
-    flow = _Flow(text)
-    v = flow.node(in_flow=False)
-    flow._ws()
-    if flow.pos != len(text):
-        raise YAMLError(f"unexpected text after the value: {text!r}")
-    return v
-
-
-def yaml_load(text: str) -> Any:
-    """Parse the YAML subset of the repo's configs: nested block mappings whose values
-    are scalars or single-line flow collections. Returns None for an empty document."""
-    if text.lstrip()[:1] in ("{", "["):
-        try:  # a JSON document, as dump_config writes
-            return json.loads(text)
-        except ValueError:
-            pass
-    lines = []
-    for raw in text.splitlines():
-        if raw.strip() in ("---", "..."):
-            continue
-        if "\t" in raw[:len(raw) - len(raw.lstrip())]:
-            raise YAMLError(f"tab in the indentation: {raw!r}")
-        s = _strip_comment(raw).rstrip()
-        if s.strip():
-            lines.append((len(s) - len(s.lstrip(" ")), s.strip()))
-    if not lines:
-        return None
-    if len(lines) == 1 and lines[0][1][:1] in "[{\"'":
-        return _value(lines[0][1])
-
-    def block(i: int, indent: int) -> Tuple[dict, int]:
-        out: Dict[Any, Any] = {}
-        while i < len(lines) and lines[i][0] >= indent:
-            ind, content = lines[i]
-            if ind != indent:
-                raise YAMLError(f"bad indentation at {content!r}")
-            if content.startswith("- ") or content == "-":
-                raise YAMLError(f"block sequences are not in the subset: {content!r}")
-            key, rest = _split_key(content)
-            if key in out:
-                raise YAMLError(f"duplicate key {key!r}")
-            i += 1
-            if rest:
-                out[key] = _value(rest)
-            elif i < len(lines) and lines[i][0] > indent:
-                out[key], i = block(i, lines[i][0])
-            else:
-                out[key] = None
-        return out, i
-
-    out, i = block(0, lines[0][0])
-    if i != len(lines):
-        raise YAMLError(f"bad indentation at {lines[i][1]!r}")
-    return out
-
-
 def _read_yaml(path: str) -> Dict:
     with open(path) as f:
-        return yaml_load(f.read()) or {}
+        return yaml.safe_load(f) or {}
 
 
 def _parse_value(s: str) -> Any:
-    """A CLI override value or a resolver argument, read with YAML's rules."""
+    """Parse a CLI override value with YAML semantics."""
     try:
-        v = _value(s.strip())
-    except (YAMLError, IndexError, ValueError):
+        v = yaml.safe_load(s)
+    except yaml.YAMLError:
         return s
     if v is None and s.strip() not in ("", "null", "~", "None"):
+        return s
+    # yaml parses "- x" style block sequences; CLI/resolver args never mean that
+    if isinstance(v, (list, dict)) and not s.strip().startswith(("[", "{")):
         return s
     return v
 
@@ -508,9 +252,15 @@ def config_to_primitive(cfg: Any) -> Any:
     return cfg
 
 
+# a string, or a JSON float without a dot (``1e-15``), which YAML 1.1 reads as a string
+_JSON_STRING_OR_BARE_EXP = re.compile(r'("(?:[^"\\]|\\.)*")|(?<![\d.])(-?\d+)(e[-+]\d+)')
+
+
 def dump_config(path: str, cfg: Any) -> None:
-    """Write ``cfg`` as JSON (a YAML document that :func:`yaml_load` reads back)."""
+    """Write ``cfg`` as JSON (a YAML document that :func:`load_config` reads back: each
+    float with a dot, as YAML 1.1 wants)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    text = _JSON_STRING_OR_BARE_EXP.sub(lambda m: m[1] or f"{m[2]}.0{m[3]}",
+                                         json.dumps(config_to_primitive(cfg), indent=2))
     with open(path, "w") as f:
-        json.dump(config_to_primitive(cfg), f, indent=2)
-        f.write("\n")
+        f.write(text + "\n")

@@ -18,9 +18,9 @@ pieces must replay in the order they were captured, and whole, which
 :meth:`PiecewiseGraph.replay` does. A replay rewrites the output and every tensor the
 pieces made: a caller copies out, or computes from the output, before the next replay.
 
-The graphs read the static inputs the callable closes over and the modules' parameters
-where they lie: a parameter written in place (``copy_``, ``load_state_dict``) is seen by
-the next replay, one replaced by another tensor is not.
+The graphs read their static inputs (:attr:`PiecewiseGraph.inputs`) and the modules'
+parameters where they lie: a parameter written in place (``copy_``, ``load_state_dict``) is
+seen by the next replay, one replaced by another tensor is not.
 """
 
 from __future__ import annotations
@@ -59,11 +59,14 @@ class _Split:
 
 
 class PiecewiseGraph:
-    """``fn()`` captured once by :meth:`capture`, then replayed by :meth:`replay` on the
-    current stream, with nothing synchronised."""
+    """``fn(*self.inputs)`` captured once (by :meth:`capture` or the first :meth:`replay`),
+    then replayed on the current stream, with nothing synchronised. :attr:`inputs` are
+    contiguous static buffers like ``inputs``, which a caller writes before a replay."""
 
-    def __init__(self, fn: Callable[[], Any]):
+    def __init__(self, fn: Callable[..., Any], *inputs: torch.Tensor):
         self.fn = fn
+        self.inputs = tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                            for x in inputs)
         self.pool = torch.cuda.graph_pool_handle()
         self.steps: List[Any] = []  # the pieces (CUDA graphs) and the splits, in order
         self.output: Any = None
@@ -101,7 +104,7 @@ class PiecewiseGraph:
         return out
 
     def capture(self) -> None:
-        """Warm up and capture ``fn``. Nothing of the capture is computed: the first
+        """Warm up and capture ``fn``. Nothing of the capture is computed: a
         :meth:`replay` computes the output."""
         global active
         if self.steps or active is not None:
@@ -110,12 +113,12 @@ class PiecewiseGraph:
         side = torch.cuda.Stream()
         side.wait_stream(caller)
         with torch.cuda.stream(side):
-            self.fn()
+            self.fn(*self.inputs)
             torch.cuda.synchronize()  # the warm-up done, as torch.cuda.graph does
             active = self
             try:
                 self._begin()
-                self.output = self.fn()
+                self.output = self.fn(*self.inputs)
                 self._end()
             except BaseException:
                 if self._piece is not None:  # leave the stream out of capture mode
@@ -130,7 +133,10 @@ class PiecewiseGraph:
         caller.wait_stream(side)
 
     def replay(self) -> Any:
-        """Every piece and split in order; returns the output buffer(s)."""
+        """Every piece and split in order (capturing first, at the first call); returns
+        the output buffer(s)."""
+        if not self.steps:
+            self.capture()
         for step in self.steps:
             step.replay()
         return self.output
