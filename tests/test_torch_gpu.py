@@ -1136,6 +1136,53 @@ def test_full_width_folded_graphed_pipeline_against_the_unfolded_route(cuda, mon
         assert f <= 2.0 * u, (k, gaps[k])
 
 
+# -- the field-and-mesh layer without host syncs -----------------------------------------
+
+
+def test_the_mesh_stages_never_wait_on_the_host(cuda):
+    """After a warm-up call, a full-width B=2 call syncs once, at the token upload: each
+    prompt's field, marching cubes and colour read constants built once a device (the
+    triangle tables, the field's bbox, the empty-field sphere) and upload nothing. Then
+    one prompt's ``field_on_grid`` → ``extract_mesh`` → ``colorize`` runs with every sync
+    an error, and gives that prompt's mesh and colours bit for bit."""
+    from triplaneturbo_torch.pipelines.triplaneturbo_text_to_3d import (
+        TriplaneTurboTextTo3DPipeline,
+    )
+    from triplaneturbo_torch.utils import profiling
+
+    pipe = TriplaneTurboTextTo3DPipeline.from_pretrained(None, device="cuda",
+                                                         dtype_str="bfloat16", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    lat = torch.randn((2, 6, 32, 32, 4), generator=gen, device="cuda")
+    prompts = ["a delicious hamburger", "a wooden chair"]
+    pipe(prompts, latents=lat)  # captures, folds and builds the constants
+    torch.cuda.synchronize()
+    profiling.clear()
+    with profiling.recording():
+        out = pipe(prompts, latents=lat)
+    recs = profiling.spans()
+    profiling.clear()
+    syncs = Counter()
+    for r in recs:
+        syncs[r.name] += r.counts.get("syncs", 0)
+    assert sum(syncs.values()) == 1 and syncs["text_encoder"] == 1, dict(syncs)
+
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            sdf, deform = pipe.field_on_grid(out["space_cache"][0])
+            m = pipe.extract_mesh(sdf, deform)
+            color = pipe.colorize(m.verts, out["space_cache"][0])
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    mesh = out["mesh"][0]
+    assert bool(mesh.t_mask.any())
+    for got, want in ((m.verts, mesh.v_pos), (m.faces, mesh.t_pos_idx),
+                      (m.face_mask, mesh.t_mask), (color, mesh.v_rgb)):
+        assert torch.equal(got, want)
+
+
 # every GroupNorm of the serving trunk at B=1 (six planes): (C, H, W, eps, silu); the
 # UNet's at 32² latents, the student decoder's up to 256²
 GN_TRUNK = [(320, 16, 16, 1e-5, True), (320, 32, 32, 1e-6, False), (320, 32, 32, 1e-5, True),

@@ -14,6 +14,7 @@ autograd takes these to the second order. Space caches are channels-last
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -66,7 +67,8 @@ class TriplaneField(nn.Module):
         return torch.tensor([[-r, -r, -r], [r, r, r]], dtype=torch.float32)
 
     def rescale_points(self, points: torch.Tensor) -> torch.Tensor:
-        return contract_to_unisphere(points, self.bbox.to(points.device), unbounded=False)
+        return contract_to_unisphere(points, _bbox_on(self.cfg.radius, points.device),
+                                     unbounded=False)
 
     def shifted_sdf(self, points_unscaled: torch.Tensor, sdf: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -176,6 +178,13 @@ class TriplaneField(nn.Module):
             return {}
         _, enc_tex = self.interpolate(self.rescale_points(points), space_cache)
         return {"features": self.feature_network(enc_tex)}
+
+
+@functools.lru_cache(maxsize=None)
+def _bbox_on(radius: float, device: torch.device) -> torch.Tensor:
+    """``TriplaneField.bbox`` of ``radius`` on ``device``, copied there once: rescaling
+    points after that uploads nothing from the host. Shared by every caller: never written."""
+    return torch.tensor([[-radius] * 3, [radius] * 3], dtype=torch.float32).to(device)
 
 
 def analytic_normal(field_apply: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],

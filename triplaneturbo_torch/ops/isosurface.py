@@ -12,6 +12,7 @@ index, face slots the cell index. Capacities are static: ``max_verts`` /
 
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import NamedTuple, Optional, Tuple
 
@@ -294,6 +295,20 @@ def _build_mc_tables() -> Tuple[np.ndarray, np.ndarray]:
 MC_TRI_CODE, MC_TRI_COUNT = _build_mc_tables()
 MC_MAX_TRIS = MC_TRI_CODE.shape[1]
 
+_TRI_TABLES = {"mc": (MC_TRI_CODE, MC_TRI_COUNT), "mt": (CELL_TRI_CODE, CELL_TRI_COUNT)}
+
+
+@functools.lru_cache(maxsize=None)
+def tri_tables(method: str, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed triangle codes and counts of ``method`` (``"mc"``: ``MC_TRI_CODE``,
+    ``MC_TRI_COUNT``; ``"mt"``: ``CELL_TRI_CODE``, ``CELL_TRI_COUNT``) as int64 tensors on
+    ``device``, uploaded at the first call there: an extraction after it uploads nothing
+    from the host, so it never waits for the device to drain its queue. Every caller
+    shares the tensors: they are read, never written."""
+    code, count = _TRI_TABLES[method]
+    return (torch.as_tensor(code, dtype=torch.long, device=device),
+            torch.as_tensor(count, dtype=torch.long, device=device))
+
 
 class ExtractedMesh(NamedTuple):
     """Fixed-capacity mesh: only entries with mask True are real."""
@@ -327,7 +342,7 @@ def _shifted_neq(occ: torch.Tensor, d) -> torch.Tensor:
 def _extract_isosurface(sdf: torch.Tensor, deformation: Optional[torch.Tensor],
                         isovalue: float, max_verts: int, max_faces: int,
                         max_cells: Optional[int], deform_scale: float, n_classes: int,
-                        tri_code_tbl: np.ndarray, tri_count_tbl: np.ndarray) -> ExtractedMesh:
+                        method: str) -> ExtractedMesh:
     """Shared capacity-bounded extraction core for marching cubes / tets."""
     R = sdf.shape[0]
     if tuple(sdf.shape) != (R, R, R):
@@ -336,7 +351,8 @@ def _extract_isosurface(sdf: torch.Tensor, deformation: Optional[torch.Tensor],
         max_cells = max(max_faces // 4, 1024)
     dev = sdf.device
     nv = R * R * R
-    max_k = tri_code_tbl.shape[1]
+    code_tbl, count_tbl = tri_tables(method, dev)
+    max_k = code_tbl.shape[1]
     # topology is decided by sdf < isovalue
     occ = (sdf < isovalue).detach()
     sdf_flat = sdf.reshape(-1)
@@ -387,8 +403,6 @@ def _extract_isosurface(sdf: torch.Tensor, deformation: Optional[torch.Tensor],
     ccase = case_flat[cell_ids]
 
     # ---- faces: the k-th triangle of each active cell, in cell order -------
-    count_tbl = torch.as_tensor(tri_count_tbl, dtype=torch.long, device=dev)
-    code_tbl = torch.as_tensor(tri_code_tbl, dtype=torch.long, device=dev)
     cellcnt = count_tbl[ccase] * cell_valid.long()
     ccum = torch.cumsum(cellcnt, dim=0)
     fslots = torch.arange(1, max_faces + 1, dtype=torch.long, device=dev)
@@ -431,7 +445,7 @@ def marching_tets(sdf: torch.Tensor, deformation: Optional[torch.Tensor] = None,
     (tanh-bounded). Vertices come in normalized [0, 1] grid coordinates.
     """
     return _extract_isosurface(sdf, deformation, isovalue, max_verts, max_faces, max_cells,
-                               deform_scale, 7, CELL_TRI_CODE, CELL_TRI_COUNT)
+                               deform_scale, 7, "mt")
 
 
 def marching_cubes(sdf: torch.Tensor, deformation: Optional[torch.Tensor] = None,
@@ -443,7 +457,7 @@ def marching_cubes(sdf: torch.Tensor, deformation: Optional[torch.Tensor] = None
         # about 2 triangles per active cell, so cells are a larger share of the faces
         max_cells = max(max_faces // 2, 1024)
     return _extract_isosurface(sdf, deformation, isovalue, max_verts, max_faces, max_cells,
-                               deform_scale, 3, MC_TRI_CODE, MC_TRI_COUNT)
+                               deform_scale, 3, "mc")
 
 
 def extract_isosurface(sdf: torch.Tensor, deformation: Optional[torch.Tensor] = None,

@@ -19,6 +19,7 @@ The entry point runs on the GPU unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 from dataclasses import dataclass
@@ -209,11 +210,8 @@ class TriplaneTurboTextTo3DPipeline:
         """Marching cubes (or tets) on the grid; vertices in world coordinates [-1, 1]."""
         cfg = self.cfg
         R = cfg.isosurface_resolution
-        # empty-field fallback: a sphere SDF
-        lin = torch.linspace(-1.0, 1.0, R, device=sdf.device)
-        grid = torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"), dim=-1).reshape(-1, 3)
         has_crossing = (sdf > 0).any() & (sdf < 0).any()
-        sdf = torch.where(has_crossing, sdf, torch.linalg.norm(grid, dim=-1) - 1.0)
+        sdf = torch.where(has_crossing, sdf, _sphere_sdf(R, sdf.device))
         extract = {"mc": marching_cubes, "mt": marching_tets}[cfg.isosurface_method]
         m = extract(sdf.reshape(R, R, R),
                     deform.reshape(R, R, R, 3) if cfg.isosurface_deformable_grid else None,
@@ -268,6 +266,15 @@ class TriplaneTurboTextTo3DPipeline:
             if return_dict:
                 return {"space_cache": space_cache, "latents": out_latents, "mesh": meshes}
             return meshes
+
+
+@functools.lru_cache(maxsize=None)
+def _sphere_sdf(R: int, device: torch.device) -> torch.Tensor:
+    """``extract_mesh``'s empty-field fallback: the unit sphere's SDF on the R³ grid over
+    [-1, 1]³, built once a resolution and device. Shared by every caller: never written."""
+    lin = torch.linspace(-1.0, 1.0, R, device=device)
+    grid = torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"), dim=-1).reshape(-1, 3)
+    return torch.linalg.norm(grid, dim=-1) - 1.0
 
 
 class _FastPath:
